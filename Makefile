@@ -1,4 +1,4 @@
-.PHONY: test suite native bench clean viewer device-check
+.PHONY: test native bench bench-all smoke clean viewer
 
 native:
 	$(MAKE) -C raytracer_tpu/native
@@ -6,15 +6,9 @@ native:
 test: native
 	python -m pytest tests/ -q
 
-# Survivable full run: one pytest subprocess per file, crash retry
-# (XLA has segfaulted mid-suite on this host — see scripts/run_suite.py)
-suite: native
-	python scripts/run_suite.py
-
-# device-only regression gate (run on TPU before every BENCH capture):
-# bf16-split canary, split-scan + K-slot bitwise parity, physics vs jnp
-device-check:
-	python scripts/device_check.py
+# end-to-end check of the main path on one GPU
+smoke: native
+	python chip_smoke.py
 
 bench:
 	python bench.py

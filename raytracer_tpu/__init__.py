@@ -1,4 +1,4 @@
-"""raytracer_tpu — a TPU-native progressive path-tracing framework.
+"""raytracer_tpu — a progressive path-tracing framework in JAX.
 
 A ground-up rebuild of austintheriot/ray-tracer-webgl (Rust/WASM host +
 WebGL2 fragment-shader path tracer) as an idiomatic JAX/XLA/Pallas framework:
@@ -11,8 +11,9 @@ WebGL2 fragment-shader path tracer) as an idiomatic JAX/XLA/Pallas framework:
 - On-device accumulation buffer updated by a jitted ``step`` with buffer
   donation, replacing the ping-pong FBO pair + double render
   (src/webgl.rs:180-205).
-- A Pallas TPU megakernel as the performance path for the per-pixel
-  ray-bounce loop (static/shader.frag:297-339).
+- A Pallas kernel (compiled through Triton for the GPU) as the
+  performance path for the per-pixel ray-bounce loop
+  (static/shader.frag:297-339).
 """
 
 from raytracer_tpu.core import vec, sampling

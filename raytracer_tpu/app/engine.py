@@ -62,7 +62,6 @@ class Engine:
         exhaust_black: bool = False,
         russian_roulette_depth: int = 0,
         sampler: str = "random",
-        cluster_scan: bool | str = "auto",
     ):
         self.scene = scene
         self.camera = camera
@@ -81,13 +80,6 @@ class Engine:
         self.exhaust_black = exhaust_black
         self.russian_roulette_depth = russian_roulette_depth
         self.sampler = sampler
-        # gathered cluster scan for the interactive session: the engine's
-        # scene is fixed (Reset restores the construction default), so
-        # the step factory can host-build the partition once per compiled
-        # step — the partition reads no camera state, so the fly-cam
-        # never invalidates it. Default 'auto' (the production default:
-        # on for >= 64-slot scenes, options.cluster_scan_enabled).
-        self.cluster_scan = cluster_scan
         self._seed = seed
         self.render_state: RenderState = init_render_state(
             width, height, jax.random.PRNGKey(seed)
@@ -98,8 +90,8 @@ class Engine:
         self._segments_dev = None  # device scalar: no per-frame host sync
         # host-side fold of the device counter: every _SEG_FOLD_FRAMES the
         # device scalar is drained into this float (one cheap sync), so a
-        # worker crash loses at most the un-folded tail instead of zeroing
-        # the whole running total (ADVICE r2)
+        # device fault loses at most the un-folded tail instead of zeroing
+        # the whole running total
         self._segments_host = 0.0
         self._segments_unfolded = 0
         self._save_path: Optional[str] = None
@@ -107,7 +99,7 @@ class Engine:
     _SEG_FOLD_FRAMES = 64
     #: LRU bound on compiled step functions. Each (w, h, spp, depth, flags)
     #: combination holds a compiled XLA executable; an interactive session
-    #: with many resizes would otherwise grow without bound (VERDICT r3).
+    #: with many resizes would otherwise grow without bound.
     #: 8 covers pause/unpause (spp floor swap), a debug toggle, and a few
     #: live window sizes without ever re-compiling in steady state.
     _STEP_CACHE_MAX = 8
@@ -138,7 +130,6 @@ class Engine:
                 backend=self.backend,
                 russian_roulette_depth=self.russian_roulette_depth,
                 sampler=self.sampler,
-                cluster_scan=self.cluster_scan,
             )
             self._step_cache[key] = make_step_fn(
                 self.app.width,
@@ -148,7 +139,6 @@ class Engine:
                 should_average=self.app.should_average,
                 last_frame_weight=self.app.last_frame_weight,
                 max_render_count=self.app.max_render_count,
-                static_scene=self.scene if self.cluster_scan else None,
             )
             while len(self._step_cache) > self._STEP_CACHE_MAX:
                 self._step_cache.pop(next(iter(self._step_cache)))
@@ -326,7 +316,7 @@ class Engine:
             )
             self._step_cache.clear()
             # the device scalar died with the worker; the host fold keeps
-            # everything up to the last drain (ADVICE r2)
+            # everything up to the last drain
             self._segments_dev = None
             self._segments_unfolded = 0
             # the rebuild itself issues device ops — if the worker is

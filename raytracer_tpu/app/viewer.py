@@ -237,13 +237,11 @@ def run_viewer(
     target_fps: float = 30.0,
     cols: int = 100,
     sampler: str = "random",
-    cluster_scan: bool | str = "auto",
     display: str = "ansi",
 ):
     scene, cam, *_ = presets.get_config(config, width, height)
     engine = Engine(scene, cam, width, height, spp=1, max_depth=8,
-                    backend=backend, sampler=sampler,
-                    cluster_scan=cluster_scan)
+                    backend=backend, sampler=sampler)
     engine.set_paused(False)
 
     held: dict = {}
@@ -366,17 +364,6 @@ if __name__ == "__main__":
         "low-discrepancy accumulation across frames)",
     )
     p.add_argument(
-        "--cluster-scan", dest="cluster_scan", action="store_const",
-        const=True, default="auto",
-        help="force the gathered cluster scan on (Pallas backend; the "
-        "fixed viewer scene lets the partition build once per compiled "
-        "step). Default auto: on for scenes >= 64 slots.",
-    )
-    p.add_argument(
-        "--no-cluster-scan", dest="cluster_scan", action="store_const",
-        const=False, help="force the flat scan",
-    )
-    p.add_argument(
         "--display", default="ansi", choices=("ansi", "kitty"),
         help="frame encoding: ansi half-blocks (any terminal, "
         "downsampled to --cols) or the kitty graphics protocol "
@@ -387,5 +374,5 @@ if __name__ == "__main__":
 
     enable_persistent_cache()
     run_viewer(a.config, a.width, a.height, a.backend, a.max_frames,
-               cols=a.cols, sampler=a.sampler, cluster_scan=a.cluster_scan,
+               cols=a.cols, sampler=a.sampler,
                display=a.display)

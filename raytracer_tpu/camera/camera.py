@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import math
 
-import flax.struct
+from raytracer_tpu.core import pytree
 import jax
 import jax.numpy as jnp
 
@@ -29,7 +29,7 @@ FOV_MAX = math.pi * 0.75
 PITCH_LIMIT_DEG = 89.0
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class CameraConfig:
     """Primitive camera state. yaw/pitch in degrees (reference convention,
     src/state.rs:108-113), fov in radians (src/state.rs:43-44)."""
@@ -41,7 +41,7 @@ class CameraConfig:
     aperture: jnp.ndarray
     focus_distance: jnp.ndarray
     aspect_ratio: jnp.ndarray  # width / height
-    vup: jnp.ndarray = flax.struct.field(
+    vup: jnp.ndarray = pytree.field(
         default_factory=lambda: jnp.array([0.0, 1.0, 0.0], jnp.float32)
     )
 
@@ -59,7 +59,7 @@ class CameraConfig:
     ) -> "CameraConfig":
         """Build from python scalars/tuples, converting to f32 arrays.
 
-        (Conversion lives here, not in ``__post_init__``, because flax pytree
+        (Conversion lives here, not in ``__post_init__``, because pytree
         unflattening re-invokes the constructor with arbitrary leaves.)
         """
         f32 = lambda v: jnp.asarray(v, dtype=jnp.float32)
@@ -75,7 +75,7 @@ class CameraConfig:
         )
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class DerivedCamera:
     """The derived viewport basis — the kernel's camera ABI, matching the
     uniforms u_camera_origin/u_horizontal/u_vertical/u_lower_left_corner/

@@ -6,11 +6,11 @@ wavefront of rays — the whole pixel grid at once.
 
 from __future__ import annotations
 
-import flax.struct
+from raytracer_tpu.core import pytree
 import jax.numpy as jnp
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class Ray:
     origin: jnp.ndarray  # (..., 3)
     direction: jnp.ndarray  # (..., 3) — NOT normalized (matches shader.frag:348)

@@ -3,7 +3,7 @@
 Rebuilds the reference's scalar Vec3 math (src/math.rs:17-382) and the GLSL
 built-ins used by the kernel (reflect/refract/mix) as batched jnp ops. All
 functions broadcast over leading dimensions, so "one Vec3" and "a million
-rays" share the same code path — the TPU-native answer to the reference's
+rays" share the same code path — the answer to the reference's
 dual Rust/GLSL implementations (src/glsl.rs:1-2).
 """
 

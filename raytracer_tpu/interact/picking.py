@@ -16,7 +16,7 @@ Semantics preserved from the reference:
 from __future__ import annotations
 
 
-import flax.struct
+from raytracer_tpu.core import pytree
 import jax
 import jax.numpy as jnp
 
@@ -27,7 +27,7 @@ from raytracer_tpu.render.tracer import hit_world
 from raytracer_tpu.scene.spheres import NO_SELECTED_OBJECT_ID, Scene
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class CenterHit:
     """Result of the center-of-view pick (mirror of HitResultData,
     src/glsl.rs:96-103, plus the derived focus data)."""

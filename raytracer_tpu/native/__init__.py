@@ -37,7 +37,7 @@ def _build() -> bool:
         )
         if os.path.exists(_SO):
             # record the source SET the .so was built from: mtimes alone
-            # can't see a deleted source file (ADVICE r2)
+            # can't see a deleted source file
             with open(_STAMP, "w") as f:
                 f.write("\n".join(_sources()))
             return True

@@ -1,13 +1,13 @@
-"""Multi-chip scaling via jax.sharding + shard_map over a device mesh.
+"""Multi-device scaling via jax.sharding + shard_map over a device mesh.
 
 The reference is single-GPU with zero collectives (SURVEY §5): its only
 parallelism is the rasterizer fanning the fragment shader over pixels. The
-TPU-native scaling story is explicit and lives here:
+scaling story here is explicit:
 
 - pixels are embarrassingly parallel → shard the pixel grid's row axis over
   a ``rows`` mesh axis with NO collectives during tracing,
 - samples-per-pixel shard over an ``spp`` mesh axis with ONE ``psum`` per
-  frame (the linear-color mean) riding the ICI,
+  frame (the linear-color mean),
 - the accumulation buffer stays sharded over rows across frames, so
   progressive mode is also collective-free along rows.
 """

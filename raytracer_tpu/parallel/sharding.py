@@ -9,13 +9,13 @@ of the same (shard, sample) decomposition — deterministic at every mesh size.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Sequence
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental.shard_map import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from raytracer_tpu.camera.camera import CameraConfig, DerivedCamera, derive_camera, pixel_st_grid
@@ -33,8 +33,6 @@ from raytracer_tpu.scene.spheres import Scene
 
 def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str] = ("rows", "spp")):
     """Build a Mesh over the first prod(axis_sizes) visible devices."""
-    import numpy as np
-
     n = int(np.prod(axis_sizes))
     avail = jax.devices()
     if len(avail) < n:
@@ -114,149 +112,55 @@ def _render_shard(
     return color.reshape(rows_local, -1, 3), segments[None]
 
 
-def _pallas_band_chunks(scene, dcam, seed, samp0, spp_local, width, height,
-                        local_h, opts, interpret, g_full=None,
-                        caux=None, n_global=0, chunk_count=None):
-    """Chunked UNSORTED Pallas band render for one rows-shard (shared by
-    the offline and progressive sharded paths; the sorted machinery is
-    _pallas_band_sorted). Consumes the shared _chunk_schedule, so the
-    f32 per-pixel accumulation order matches the SORTED sharded render
-    exactly (bitwise) and matches the single-chip render whenever the
-    shard-local watchdog budget yields the same schedule (always for
-    progressive 1-spp frames, which fit one chunk; a shard's smaller
-    band can otherwise afford larger chunks — then parity holds up to
-    f32 chunk-grouping order only)."""
+def _seed_and_offsets(key, spp_axis, spp_local: int, local_h: int):
+    """Per-shard kernel seed, first absolute sample and first image row."""
     from raytracer_tpu.render import pallas_kernel as pk
 
-    row_offset = jax.lax.axis_index("rows") * local_h
-    chunk = pk._pick_chunk_spp(
-        spp_local, width * local_h,
-        scene.count if chunk_count is None else chunk_count,
-        opts.max_depth, opts.russian_roulette_depth,
-        cost_scale=opts.cluster_chunk_cost if caux is not None else 1.0,
-    )
-    # the SHARED _chunk_schedule, exactly like both single-chip paths and
-    # the sorted sharded path: identical per-pixel chunk grouping keeps
-    # sorted/unsorted sharded renders bitwise-equal (f32 addition order)
-    sizes, _ = pk._chunk_schedule(spp_local, chunk)
-    acc = None
-    offset = 0
-    for cs in sizes:
-        out = pk._render_chunk(
-            scene, dcam, seed, samp0 + offset, width, height, cs, opts,
-            8, interpret, local_height=local_h, row_offset=row_offset,
-            g_full=g_full, caux=caux, n_global=n_global,
-        )
-        acc = out if acc is None else acc + out
-        offset += cs
-    return acc
+    samp0 = jax.lax.axis_index(spp_axis) * spp_local if spp_axis else 0
+    return (pk._seed_from_key(key), samp0,
+            jax.lax.axis_index("rows") * local_h)
 
 
-def _pallas_band_sorted(scene, dcam, seed, samp0, spp_local, width, height,
-                        local_h, opts, interpret, r_sub, k_slots,
-                        g_full=None, caux=None, n_global=0,
-                        chunk_count=None):
-    """Per-shard SORTED band render: the full single-chip machinery —
-    profile chunk, profile-guided pixel sorting, K-slot virtual tiles,
-    and the fused uniform-chunk lax.scan — run shard-locally (each shard
-    sorts its own band; no collectives added). Mirrors
-    ``pallas_kernel._render_pallas`` with the shard's ``row_offset``
-    threaded through the plan so pixel identities stay ABSOLUTE (RNG and
-    camera st match the single-chip render exactly).
-
-    Returns (acc (4, Hp_local·Wp) flat pixel sums, segments scalar).
-    Within a shard, sorted and unsorted renders are bitwise-equal (same
-    chunk schedule, same per-pixel accumulation order).
-
-    This is ``pallas_kernel._render_pallas``'s sorted branch called with
-    the band arguments — the profile/scan/loop drivers are SHARED, so the
-    two paths cannot drift apart."""
+@functools.lru_cache(maxsize=16)
+def _sharded_render_fn(mesh: Mesh, width: int, height: int, spp: int,
+                       opts: TraceOptions, g_full: int, sizes):
+    """The jitted shard_map render for one static configuration, cached so
+    repeated renders reuse one executable."""
     from raytracer_tpu.render import pallas_kernel as pk
 
-    # contiguous band (stride 1): shard s starts at row s·local_h;
-    # interleaved (stride = rows): s's blocks start at row s·g and step
-    # by rows·g — the kernel/plan affine map does the rest
-    row_offset = jax.lax.axis_index("rows") * (
-        r_sub * k_slots if opts.row_block_stride > 1 else local_h
-    )
-    chunk = pk._pick_chunk_spp(
-        spp_local, width * local_h,
-        scene.count if chunk_count is None else chunk_count,
-        opts.max_depth, opts.russian_roulette_depth,
-        cost_scale=opts.cluster_chunk_cost if caux is not None else 1.0,
-    )
-    sizes, uniform = pk._chunk_schedule(spp_local, chunk)
-    chunk0 = sizes[0]
-    acc, segments, inv, pm = pk._render_chunk_profiled(
-        scene, dcam, seed, width, height, chunk0, opts, r_sub, interpret,
-        k_slots, g_full, sample_offset=samp0, local_height=local_h,
-        row_offset=row_offset, caux=caux, n_global=n_global,
-    )
-    if uniform and len(sizes) > 1:
-        acc, segments = pk._render_chunks_scan(
-            scene, dcam, seed, samp0 + chunk0, acc, segments, inv, pm,
-            width, height, sizes[1], len(sizes) - 1, opts, r_sub,
-            interpret, k_slots, g_full, local_height=local_h,
-            row_offset=row_offset, caux=caux, n_global=n_global,
-        )
-    else:
-        offset = chunk0
-        for cs in sizes[1:]:
-            acc, segments, inv, pm = pk._chunk_sorted_step(
-                scene, dcam, seed, samp0 + offset, acc, segments, inv, pm,
-                width, height, cs, opts, r_sub, interpret, k_slots,
-                offset + cs < spp_local, g_full, local_height=local_h,
-                row_offset=row_offset, caux=caux, n_global=n_global,
+    spp_axis = "spp" if "spp" in mesh.shape else None
+    local_h = height // mesh.shape["rows"]
+    spp_local = spp // mesh.shape.get("spp", 1)
+    band = dict(width=width, height=height, band_h=local_h, opts=opts,
+                g_full=g_full)
+
+    def shard_body(scene, uuid, dcam, key):
+        seed, samp0, row0 = _seed_and_offsets(key, spp_axis, spp_local,
+                                              local_h)
+        if sizes is not None:
+            acc, seg = pk.adaptive_band(scene, uuid, dcam, seed, row0,
+                                        sizes=list(sizes), **band)
+            image, mean_spp, spp_map = pk._finalize_adaptive(
+                acc, width, local_h, opts.gamma
             )
-            offset += cs
-    return acc, segments
+            return image, seg[None], mean_spp[None], spp_map
+        sums, _, segs = pk.trace_band(scene, uuid, dcam, None, seed, samp0,
+                                      row0, spp=spp_local, **band)
+        lin, seg = sums[:3], pk._seg_pair(segs)
+        if spp_axis is not None:
+            lin = jax.lax.psum(lin, spp_axis)
+            seg = jax.lax.psum(seg, spp_axis)
+        image = pk._band_image(lin, width, local_h) * (1.0 / spp)
+        return pk._gamma(image, opts.gamma), seg[None]
 
-
-def _pallas_band_adaptive(scene, dcam, seed, width, height,
-                          local_h, opts, interpret, r_sub, k_slots,
-                          sizes_a, g_full=None, caux=None, n_global=0):
-    """Per-shard ADAPTIVE band render: the single-chip adaptive drivers
-    (profile chunk → fused re-planning lax.scan with per-pixel early
-    termination, pallas_kernel._render_adaptive_profiled/_scan) run
-    shard-locally. Convergence is a per-pixel decision computed from that
-    pixel's own statistics, so bands decide independently — no
-    collectives, and per-pixel sample counts match the single-chip
-    adaptive render whenever the chunk schedule matches (same absolute
-    RNG streams, same chunk boundaries ⇒ same stop decisions).
-
-    Returns (acc (6, Hp_local·Wp) flat pixel sums incl. n/lum² planes,
-    segments scalar)."""
-    from raytracer_tpu.render import pallas_kernel as pk
-
-    row_offset = jax.lax.axis_index("rows") * (
-        r_sub * k_slots if opts.row_block_stride > 1 else local_h
-    )
-    acc, segments, inv, pm = pk._render_adaptive_profiled(
-        scene, dcam, seed, width, height, sizes_a[0], opts, r_sub,
-        interpret, k_slots, g_full, cs_next=sizes_a[1],
-        local_height=local_h, row_offset=row_offset, caux=caux,
-        n_global=n_global,
-    )
-    acc, segments = pk._render_adaptive_scan(
-        scene, dcam, seed, jnp.int32(sizes_a[0]), acc, segments, inv, pm,
-        width, height, sizes_a[1], len(sizes_a) - 1, opts, r_sub,
-        interpret, k_slots, g_full, local_height=local_h,
-        row_offset=row_offset, caux=caux, n_global=n_global,
-    )
-    return acc, segments
-
-
-def _shard_tile_params(local_h: int, r_sub: int = 8, k_slots: int = 4):
-    """The single-chip tile-shape guards (pallas_kernel.render_image_pallas)
-    applied to a shard's band height — plus a divisibility requirement the
-    single-chip render doesn't need: a shard's padded tile rows that land
-    BELOW its band are mid-image (`in_img` true), so they'd render (and
-    count) its neighbor's pixels. k_slots·r_sub must divide the band."""
-    while k_slots > 1 and (
-        local_h < k_slots * r_sub or local_h % (k_slots * r_sub)
-    ):
-        k_slots //= 2
-    return r_sub, k_slots
+    # segments ride as per-shard exact int32 [hi, lo] pairs
+    # (pallas_kernel._seg_pair), summed and rounded to f32 once outside
+    out_specs = (P("rows", None, None), P("rows", None))
+    if sizes is not None:
+        out_specs += (P("rows"), P("rows", None))
+    return jax.jit(jax.shard_map(shard_body, mesh=mesh,
+                                 in_specs=(P(), P(), P(), P()),
+                                 out_specs=out_specs, check_vma=False))
 
 
 def render_image_sharded_pallas(
@@ -270,205 +174,57 @@ def render_image_sharded_pallas(
     opts: TraceOptions | None = None,
     return_stats: bool = False,
 ):
-    """Multi-chip render through the Pallas megakernel.
+    """Multi-device render through the Pallas kernel.
 
     Each 'rows' shard renders its horizontal band via the kernel's
-    row-offset path, and each 'spp' shard renders a disjoint global sample
-    range — both offsets reproduce the exact single-chip pixel/sample RNG
-    streams, so the full-mesh render equals the single-chip render up to
-    f32 summation order. One psum of linear color per render rides the ICI.
+    row-offset path, and each 'spp' shard a disjoint global sample range.
+    Every pixel's RNG stream and camera ray derive from ABSOLUTE pixel
+    coordinates and sample indices, so a rows-only mesh reproduces the
+    single-device render bitwise; an spp axis adds one psum of linear
+    color, which changes only the f32 summation order.
     """
-    import dataclasses
-
     from raytracer_tpu.render import pallas_kernel as pk
 
     opts = opts or TraceOptions()
     if opts.enable_debug:
-        # the debug overlay is an interactive single-chip feature; the
-        # sharded band helpers never populate the cursor/selection
-        # uniform slots, so honoring the flag here would paint garbage
-        # markers — drop it explicitly
+        # the debug overlay is an interactive single-device feature; the
+        # sharded bands never carry the cursor/selection uniforms
         opts = dataclasses.replace(opts, enable_debug=False)
     rows = mesh.shape["rows"]
     spp_axis = "spp" if "spp" in mesh.shape else None
     spp_size = mesh.shape.get("spp", 1)
-    if height % (rows * 8):
-        raise ValueError(
-            f"height {height} must be divisible by rows*8 = {rows * 8}"
-        )
+    if height % rows:
+        raise ValueError(f"height {height} not divisible by rows axis {rows}")
     if spp % spp_size:
         raise ValueError(f"spp {spp} not divisible by spp axis {spp_size}")
-    local_h = height // rows
-    spp_local = spp // spp_size
-    interpret = jax.default_backend() != "tpu"
     dcam = derive_camera(camera)
-    kd = jax.random.key_data(key).astype(jnp.uint32)
-    seed = (kd[0] ^ pk._lowbias32(kd[1])).astype(jnp.int32)
-
-    # gathered cluster scan (round 4): the partition is host-built on the
-    # concrete scene here, exactly like the single-chip entry
-    # (pallas_kernel.render_image_pallas) — the reordered scene +
-    # replicated bounds/uuid tables ride into every shard, and the
-    # per-band machinery is identical. chunk_count carries the ORIGINAL
-    # slot count past the padded-partition swap so the shard-local spp
-    # chunk schedule (= per-pixel f32 accumulation order) matches the
-    # sharded FLAT render's exactly — the same plumb-through the
-    # single-chip path has (render_image_pallas); without it, sharded
-    # cluster renders would drift bitwise from sharded flat (ADVICE r4).
-    caux, n_global = None, 0
-    chunk_count = scene.count  # pre-swap
-    from raytracer_tpu.render.options import cluster_scan_enabled
-
-    if cluster_scan_enabled(opts, scene.count):
-        part = pk._cluster_partition(scene, opts)
-        if part is not None:
-            scene = part.scene
-            caux = (pk._part_bounds(part, opts), part.uuid)
-            n_global = part.n_global
-
-    if caux is not None:
-        # cluster members run the full near→far fallback — nothing to split
-        g_full = None
-    else:
-        # static far-root analysis (the scene is concrete here, outside
-        # shard_map): same permutation + near-only suffix as the
-        # single-chip offline path (pallas_kernel._containable_split) —
-        # value-neutral sphere reordering, so shard/single-chip parity
-        # is unchanged
-        split = pk._containable_split(scene, dcam, opts)
-        if split is not None:
-            perm, g_full = split
-            if perm is not None:
-                scene = jax.tree_util.tree_map(lambda a: a[perm], scene)
-        else:
-            g_full = None
-
-    # sorted path exactly when the single-chip render would sort: multi-
-    # chunk work with sort_pixels on (the schedule is shard-local/static)
-    chunk_local = pk._pick_chunk_spp(
-        spp_local, width * local_h, chunk_count, opts.max_depth,
-        opts.russian_roulette_depth,
-        cost_scale=opts.cluster_chunk_cost if caux is not None else 1.0,
+    # static far-root analysis on the concrete scene, as the single-device
+    # path does — a value-neutral sphere reordering
+    scene, uuid, g_full = pk._apply_split(
+        scene, pk._containable_split(scene, dcam, opts)
     )
-    use_sorted = opts.sort_pixels and spp_local > chunk_local
-    r_sub, k_slots = _shard_tile_params(local_h)
 
-    # adaptive per-pixel early termination, mirroring the single-chip
-    # gate (pallas_kernel._render_pallas): a finer uniform chunk schedule
-    # so convergence re-decides often. Shard-local — each band plans its
-    # own pixels, no collectives. Requires every shard to see a pixel's
-    # FULL sample stream, so it only engages without an spp axis (an spp
-    # shard stopping a pixel early would desync the disjoint sample
-    # ranges); spp-sharded renders strip the tolerance and run fixed-spp.
-    use_adaptive = False
-    if opts.adaptive_tolerance > 0.0:
-        if spp_size == 1 and opts.sort_pixels:
-            cap = (opts.adaptive_chunk_spp
-                   if opts.adaptive_chunk_spp > 0
-                   else pk.ADAPTIVE_AUTO_CHUNK)
-            chunk_a = min(chunk_local, cap)
-            sizes_a, uniform_a = pk._chunk_schedule(spp_local, chunk_a)
-            use_adaptive = spp_local > chunk_a and uniform_a
-        if not use_adaptive:
-            opts = dataclasses.replace(opts, adaptive_tolerance=0.0)
-
-    # round-robin block interleave (options.interleave_rows): give each
-    # rows-shard every rows-th (k_slots·r_sub)-row block instead of one
-    # contiguous band, so no shard owns a solid stripe of the expensive
-    # region (glass/metal rows; adaptive surviving-pixel hotspots).
-    # Per-pixel values are placement-independent (RNG/camera/accumulation
-    # derive from absolute pixel coords and the shard-local chunk
-    # schedule, which depends only on local_h), so after un-interleaving
-    # the image is bitwise-identical to the contiguous layout. Only the
-    # sorted/adaptive band paths thread the stride; with one block per
-    # shard the layouts coincide, so skip the permute.
-    g_block = r_sub * k_slots
-    use_interleave = (
-        opts.interleave_rows and rows > 1
-        and (use_sorted or use_adaptive) and local_h > g_block
-    )
-    if use_interleave:
-        opts = dataclasses.replace(opts, row_block_stride=rows)
-
-    def shard_body(scene, dcam, seed, *cx):
-        caux_l = (cx[0], cx[1]) if cx else None
-        samp0 = (
-            jax.lax.axis_index(spp_axis) * spp_local if spp_axis else 0
+    # adaptive sampling decides per pixel from that pixel's own sums, so
+    # rows bands decide independently (no collectives). An spp shard
+    # stopping a pixel early would desync the disjoint sample ranges, so
+    # spp-sharded renders run fixed-spp.
+    sizes = None
+    if opts.adaptive_tolerance > 0.0 and spp_size == 1:
+        sizes = pk.adaptive_schedule(
+            spp, opts.adaptive_chunk_spp or pk.ADAPTIVE_AUTO_CHUNK
         )
-        if use_adaptive:
-            # spp_size == 1 by the gate above: no spp-axis psum needed
-            acc, segments = _pallas_band_adaptive(
-                scene, dcam, seed, width, height, local_h,
-                opts, interpret, r_sub, k_slots, sizes_a, g_full=g_full,
-                caux=caux_l, n_global=n_global,
-            )
-            image, mean_spp, spp_map = pk._finalize_adaptive(
-                acc, width, local_h, opts.gamma, r_sub, k_slots
-            )
-            return image, segments[None], mean_spp[None], spp_map
-        if use_sorted:
-            acc, segments = _pallas_band_sorted(
-                scene, dcam, seed, samp0, spp_local, width, height,
-                local_h, opts, interpret, r_sub, k_slots, g_full=g_full,
-                caux=caux_l, n_global=n_global, chunk_count=chunk_count,
-            )
-            if spp_axis is not None:
-                acc = jax.lax.psum(acc, spp_axis)
-                segments = jax.lax.psum(segments, spp_axis)
-            image = pk._finalize_flat(
-                acc[:3], width, local_h, spp, opts.gamma, r_sub, k_slots
-            )
-            return image, segments[None]
-        acc = _pallas_band_chunks(
-            scene, dcam, seed, samp0, spp_local, width, height, local_h,
-            opts, interpret, g_full=g_full, caux=caux_l,
-            n_global=n_global, chunk_count=chunk_count,
-        )
-        if spp_axis is not None:
-            acc = jax.lax.psum(acc, spp_axis)
-        image, segments = pk._finalize(acc, width, local_h, spp, opts.gamma, 8)
-        return image, segments[None]
-
-    # segments ride as per-shard exact int32 [hi, lo] pairs (see
-    # pallas_kernel._seg_pair) — summed across shards and rounded to f32
-    # exactly once below, so sharded totals are plan/partition-exact like
-    # the single-chip path's
-    out_specs = (P("rows", None, None), P("rows", None))
-    if use_adaptive:
-        # per-band mean effective spp + the (H, W) sample-density map,
-        # row-sharded exactly like the image
-        out_specs += (P("rows"), P("rows", None))
-    extra = () if caux is None else caux  # replicated cluster tables
-    fn = shard_map(
-        shard_body,
-        mesh=mesh,
-        in_specs=(P(), P(), P()) + (P(),) * len(extra),
-        out_specs=out_specs,
-        check_rep=False,
-    )
-    out = jax.jit(fn)(scene, dcam, seed, *extra)
-    image, segments = out[0], out[1]
-    spp_map = out[3] if use_adaptive else None
-    if use_interleave:
-        # un-interleave: virtual row s·local_h + j·g + r (shard s, local
-        # block j, in-block row r) holds physical row (s + j·rows)·g + r
-        s = np.arange(height) // local_h
-        u = np.arange(height) % local_h
-        phys = (s + (u // g_block) * rows) * g_block + (u % g_block)
-        inv_rows = np.empty(height, np.int64)
-        inv_rows[phys] = np.arange(height)
-        take = jnp.asarray(inv_rows)
-        image = jnp.take(image, take, axis=0)
-        if spp_map is not None:
-            spp_map = jnp.take(spp_map, take, axis=0)
+    if sizes is None:
+        opts = dataclasses.replace(opts, adaptive_tolerance=0.0)
+    fn = _sharded_render_fn(mesh, width, height, spp, opts, g_full,
+                            None if sizes is None else tuple(sizes))
+    out = fn(scene, uuid, dcam, key)
+    image = out[0]
     if return_stats:
-        # per-rows-shard values are already psum'ed across the spp axis
-        stats = {"segments": pk._seg_value(jnp.sum(segments, axis=0))}
-        if use_adaptive:
-            # equal band heights (and pixel counts under interleave)
-            # ⇒ the mean of per-band means is exact
+        stats = {"segments": pk._seg_value(jnp.sum(out[1], axis=0))}
+        if sizes is not None:
+            # equal band heights ⇒ the mean of per-band means is exact
             stats["mean_spp"] = jnp.mean(out[2])
-            stats["spp_map"] = spp_map
+            stats["spp_map"] = out[3]
         return image, stats
     return image
 
@@ -516,8 +272,8 @@ def render_image_sharded(
         P(),  # key
     )
     out_specs = (P("rows", None, None), P("rows"))
-    fn = shard_map(body, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                   check_rep=False)
+    fn = jax.shard_map(body, mesh=mesh, in_specs=in_specs,
+                       out_specs=out_specs, check_vma=False)
     image, segments = jax.jit(fn)(scene, dcam, st, key)
     if return_stats:
         return image, {"segments": jnp.sum(segments)}
@@ -551,9 +307,7 @@ def make_sharded_step_fn(
     hint's geometry/materials and the camera to stay put; interactive
     sessions (scene edits / a flying camera can move ray origins inside
     formerly-safe spheres) must omit them — the default keeps full
-    near→far logic, exactly like the single-chip progressive step."""
-    import dataclasses
-
+    near→far logic, exactly like the single-device progressive step."""
     from raytracer_tpu.render.api import resolve_backend
 
     opts = opts or TraceOptions()
@@ -600,7 +354,7 @@ def make_sharded_step_fn(
         )
         return color, segments
 
-    fn = shard_map(
+    fn = jax.shard_map(
         shard_body,
         mesh=mesh,
         in_specs=(
@@ -613,7 +367,7 @@ def make_sharded_step_fn(
             P(),  # debug
         ),
         out_specs=(P("rows", None, None), P("rows")),
-        check_rep=False,
+        check_vma=False,
     )
 
     def step(state: RenderState, scene: Scene, camera: CameraConfig,
@@ -653,82 +407,60 @@ def _make_sharded_step_fn_pallas(
     static_scene: Scene | None = None,
     static_camera: CameraConfig | None = None,
 ):
-    """Progressive step through the Pallas megakernel over the mesh — the
-    reference's primary realtime use case (static/shader.frag:387-404) on
-    the fast kernel at any mesh size. Each 'rows' shard renders its band
-    via the kernel's row-offset path and each 'spp' shard a disjoint global
-    sample range, reproducing the exact single-chip RNG streams: a sharded
-    frame equals the single-chip Pallas frame bitwise for a pure-rows
-    mesh whenever the shard-local watchdog budget yields the single-chip
-    chunk schedule — always at the progressive 1-spp frame size (one
-    chunk); with an spp axis, to one psum's f32 summation order; for
-    multi-launch spp_local with a diverging schedule, to f32
-    chunk-grouping order. The accumulation buffer stays row-sharded
-    frame to frame."""
-    import dataclasses
-
+    """Progressive step through the Pallas kernel over the mesh — the
+    reference's primary realtime use case (static/shader.frag:387-404).
+    Each 'rows' shard renders its band via the kernel's row-offset path
+    and each 'spp' shard a disjoint global sample range, reproducing the
+    single-device RNG streams: a rows-only frame equals the single-device
+    frame bitwise, an spp axis to one psum's f32 summation order. The
+    accumulation buffer stays row-sharded frame to frame."""
     from raytracer_tpu.render import pallas_kernel as pk
 
-    if opts.adaptive_tolerance > 0.0:
-        opts = dataclasses.replace(opts, adaptive_tolerance=0.0)
+    opts = dataclasses.replace(opts, adaptive_tolerance=0.0)
     rows = mesh.shape["rows"]
     spp_axis = "spp" if "spp" in mesh.shape else None
     spp_size = mesh.shape.get("spp", 1)
-    if height % (rows * 8):
-        raise ValueError(
-            f"height {height} must be divisible by rows*8 = {rows * 8} "
-            "for the Pallas row-offset path"
-        )
     local_h = height // rows
     spp_local = spp // spp_size
-    interpret = jax.default_backend() != "tpu"
 
     # fixed-scene sessions: run the split-scan analysis ONCE at build time
-    # on the concrete hints (inside the jitted step everything is traced,
-    # so per-frame analysis is impossible) — VERDICT r2 #3
-    perm, g_full = None, None
+    # on the concrete hints (inside the jitted step everything is traced)
+    split = None
     if static_scene is not None and static_camera is not None:
         split = pk._containable_split(
             static_scene, derive_camera(static_camera), opts
         )
-        if split is not None:
-            perm, g_full = split
-
     stratified = opts.sampler == "stratified"
 
     def shard_body(frame, key, scene, dcam):
-        if perm is not None:
-            # static index permutation of the traced scene (containable
-            # spheres first) — value-neutral reordering
-            scene = jax.tree_util.tree_map(lambda a: a[perm], scene)
+        scene, uuid, g_full = pk._apply_split(scene, split)
         if stratified:
             # fixed per-session seed; frames shift the global sample range
             # by spp so the session decomposes exactly like one offline
-            # render (each pixel's R2 prefix consumed in order — see
-            # progressive/step.py)
+            # render (see progressive/step.py)
             frame_key, frame_base = key, frame[0] * spp
         else:
             frame_key, frame_base = jax.random.fold_in(key, frame[0]), 0
-        kd = jax.random.key_data(frame_key).astype(jnp.uint32)
-        seed = (kd[0] ^ pk._lowbias32(kd[1])).astype(jnp.int32)
-        samp0 = frame_base + (
-            jax.lax.axis_index(spp_axis) * spp_local if spp_axis else 0
+        seed, samp0, row0 = _seed_and_offsets(frame_key, spp_axis,
+                                              spp_local, local_h)
+        sums, _, segs = pk.trace_band(
+            scene, uuid, dcam, None, seed, frame_base + samp0, row0,
+            width=width, height=height, band_h=local_h, spp=spp_local,
+            opts=opts, g_full=g_full,
         )
-        acc = _pallas_band_chunks(
-            scene, dcam, seed, samp0, spp_local, width, height, local_h,
-            opts, interpret, g_full=g_full,
-        )
+        lin, seg = sums[:3], pk._seg_pair(segs)
         if spp_axis is not None:
-            acc = jax.lax.psum(acc, spp_axis)
-        image, segments = pk._finalize(acc, width, local_h, spp, opts.gamma, 8)
-        return image, segments[None]
+            lin = jax.lax.psum(lin, spp_axis)
+            seg = jax.lax.psum(seg, spp_axis)
+        image = pk._band_image(lin, width, local_h) * (1.0 / spp)
+        return pk._gamma(image, opts.gamma), seg[None]
 
-    fn = shard_map(
+    fn = jax.shard_map(
         shard_body,
         mesh=mesh,
         in_specs=(P(), P(), P(), P()),
         out_specs=(P("rows", None, None), P("rows", None)),
-        check_rep=False,
+        check_vma=False,
     )
 
     def step(state: RenderState, scene: Scene, camera: CameraConfig,

@@ -10,12 +10,12 @@ reproducible thanks to counter-based RNG.
 
 from __future__ import annotations
 
-import flax.struct
+from raytracer_tpu.core import pytree
 import jax
 import jax.numpy as jnp
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class RenderState:
     accum: jnp.ndarray  # (H, W, 3) f32 — running average (post-gamma, like the reference texture)
     render_count: jnp.ndarray  # () i32 — frames folded into accum, clamped at max_render_count

@@ -82,38 +82,19 @@ def make_step_fn(
     if backend is not None:
         opts = dataclasses.replace(opts, backend=backend)
     # resolve 'auto' here (compile-time): the viewer/engine default to it,
-    # and the realtime path must hit the fast kernel on TPU (VERDICT r2 #7)
+    # and the realtime path must hit the fast kernel where there is one
     opts = dataclasses.replace(opts, backend=resolve_backend(opts.backend))
 
     # fixed-scene sessions: run the split-scan analysis once at build time
     # on the concrete hints (traced scenes can't be analyzed per frame)
-    perm, g_full = None, None
-    static_cluster = None
-    if opts.backend == "pallas" and static_scene is not None:
+    split = None
+    if (opts.backend == "pallas" and static_scene is not None
+            and static_camera is not None):
         from raytracer_tpu.render import pallas_kernel as pk
-        from raytracer_tpu.render.options import cluster_scan_enabled
 
-        if cluster_scan_enabled(opts, static_scene.count):
-            # gathered cluster scan for fixed-scene sessions: the
-            # partition (bounds + slot layout) is host-built ONCE from
-            # the hint; each frame's traced scene is gathered into it
-            # inside the step. Same contract as static_scene: the
-            # per-frame geometry must match the hint, or the prebuilt
-            # bounds stop being conservative. Unlike the containable
-            # split below, the partition does NOT read the camera, so a
-            # flying-camera session may pass static_scene alone.
-            part = pk._cluster_partition(static_scene, opts)
-            if part is not None:
-                static_cluster = (
-                    pk._part_bounds(part, opts), part.uuid, part.n_global
-                )
-        if (static_cluster is None and static_camera is not None
-                and not opts.enable_debug):
-            split = pk._containable_split(
-                static_scene, derive_camera(static_camera), opts
-            )
-            if split is not None:
-                perm, g_full = split
+        split = pk._containable_split(
+            static_scene, derive_camera(static_camera), opts
+        )
 
     if opts.adaptive_tolerance > 0.0:
         # progressive accumulation running-averages FIXED-spp frames;
@@ -139,7 +120,7 @@ def make_step_fn(
             # the offline render's spp-chunk [i·spp, (i+1)·spp), so the
             # accumulated session consumes each pixel's R2 sequence in
             # order (every prefix low-discrepancy). sample_offset is a
-            # traced SMEM scalar, so this never recompiles per frame.
+            # traced kernel input, so this never recompiles per frame.
             frame_key = state.key
             s_off = state.frame * spp
         else:
@@ -151,11 +132,7 @@ def make_step_fn(
             color, stats = render_image_pallas(
                 scene, dcam, width, height, spp, frame_key, opts, debug,
                 return_stats=True,
-                sample_offset=s_off,
-                static_split=(
-                    (perm, g_full) if g_full is not None else None
-                ),
-                static_cluster=static_cluster,
+                sample_offset=s_off, static_split=split,
             )
         else:
             color, stats = render_image_jnp(

@@ -5,13 +5,14 @@ Two interchangeable implementations behind one signature
 
 - :mod:`raytracer_tpu.render.tracer` — the reference implementation in plain
   batched jnp (runs anywhere, including the CPU test backend),
-- :mod:`raytracer_tpu.render.pallas_kernel` — the Pallas TPU megakernel, the
-  performance path.
+- :mod:`raytracer_tpu.render.pallas_kernel` — the Pallas-Triton kernel, the
+  performance path on the GPU.
 
 Both rebuild static/shader.frag:106-383 (camera ray-gen → hit_world →
-scatter → sky, with spp averaging and gamma) in wavefront style: the
-per-thread early returns of the GLSL kernel (shader.frag:310/316/328/334)
-become masked lane updates, which is the divergence-free TPU formulation.
+scatter → sky, with spp averaging and gamma). The jnp tracer runs it in
+wavefront style, every stage over the whole ray batch with live-lane
+masks; the kernel keeps one thread per pixel, as the fragment shader
+does, and regenerates a finished path in place.
 """
 
 from raytracer_tpu.render.api import render_image, TraceOptions

@@ -4,38 +4,14 @@ from __future__ import annotations
 
 import dataclasses
 
-import flax.struct
 import jax.numpy as jnp
 
+from raytracer_tpu.core import pytree
 from raytracer_tpu.scene.spheres import NO_SELECTED_OBJECT_ID
 
 # Kernel constants (static/shader.frag:4-6).
 MIN_T = 0.001
 MAX_T = 1e5
-
-#: scenes below this slot count keep the flat scan under
-#: cluster_scan='auto': the broad phase is pure overhead when the whole
-#: flat scan is a handful of sublane rows (the device A/B that adopted
-#: the cluster default ran the 487-sphere cover — scripts/
-#: bench_cluster.py; bench.py's matrix keeps its tiny configs flat
-#: through this same gate)
-CLUSTER_AUTO_MIN_SPHERES = 64
-
-
-def cluster_scan_enabled(opts: "TraceOptions", scene_count: int) -> bool:
-    """Resolve ``TraceOptions.cluster_scan`` ('auto' | bool) for a scene.
-
-    'auto' (the default) turns the gathered cluster scan on for scenes
-    large enough that the broad phase pays (>= CLUSTER_AUTO_MIN_SPHERES
-    slots) unless the alternative scan_mxu variant was explicitly
-    requested. A True resolution can still fall back to the flat scan
-    when the host partition can't be built — traced scenes, or scenes
-    with no small-sphere clusters (pallas_kernel._cluster_partition).
-    """
-    if opts.cluster_scan == "auto":
-        return (not opts.scan_mxu
-                and scene_count >= CLUSTER_AUTO_MIN_SPHERES)
-    return bool(opts.cluster_scan)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,30 +40,20 @@ class TraceOptions:
     #: 1/p — unbiased Russian roulette (beyond the reference/book-1; cuts
     #: the deep glass tail that dominates high-depth renders)
     russian_roulette_depth: int = 0
-    #: profile-guided load balancing for multi-chunk Pallas renders: the
-    #: first spp chunk doubles as a per-pixel path-cost profile, and later
-    #: chunks render pixels re-packed so expensive pixels share tiles
-    #: (a tile runs until its most expensive lane finishes; sorting turns
-    #: the per-tile max into ≈ the mean). Bitwise-identical output.
-    sort_pixels: bool = True
     #: adaptive sampling (0 disables — the default; the fixed-spp render
-    #: is the parity/benchmark path). When > 0, the Pallas sorted
-    #: multi-chunk render stops sampling a pixel once its 95% confidence
-    #: interval on mean luminance is within ``adaptive_tolerance``
-    #: (relative, +0.02 absolute floor) — decided at CHUNK granularity
-    #: from per-pixel (n, sum lum^2) stats carried in the accumulator,
-    #: with converged pixels packed last by the plan so their lanes die
-    #: at launch. Per-pixel sample counts vary; the image is the
-    #: per-pixel mean (unbiased given the count; the sequential stopping
-    #: rule itself is the standard mildly-biased production-renderer
-    #: trade). Beyond the reference (which has no adaptive mode).
+    #: is the parity/benchmark path). When > 0, the Pallas render stops
+    #: sampling a pixel once its 95% confidence interval on mean
+    #: luminance is within ``adaptive_tolerance`` (relative, +0.02
+    #: absolute floor) — decided between spp chunks from the per-pixel
+    #: (n, Σlum, Σlum²) sums the kernel emits; a converged pixel gets a
+    #: zero sample budget for the next chunk. Per-pixel sample counts
+    #: vary; the image is the per-pixel mean (the sequential stopping
+    #: rule is the standard mildly-biased production-renderer trade).
+    #: Beyond the reference (which has no adaptive mode).
     adaptive_tolerance: float = 0.0
-    #: adaptive chunk size override (0 = auto: half the watchdog chunk
-    #: budget, bounded below by the first decision's ADAPTIVE_MIN_N).
+    #: samples per adaptive chunk (0 = pallas_kernel.ADAPTIVE_AUTO_CHUNK).
     #: Chunk size is the per-pixel overshoot floor — a pixel can't stop
-    #: mid-chunk — so smaller chunks converge in less wall time until
-    #: the MIN_N floor / per-chunk overhead dominates (measured matrix
-    #: in PERF.md).
+    #: mid-chunk — traded against one launch and one decision per chunk.
     adaptive_chunk_spp: int = 0
     #: camera-sample sequencer: 'random' (independent uniform draws — the
     #: parity/benchmark default) or 'stratified' (per-pixel 4-D R2
@@ -113,205 +79,6 @@ class TraceOptions:
     #: only ever selects a far root when the ray starts inside the sphere.
     #: Applies to concrete (non-traced) scenes on the offline path.
     split_scan: bool = True
-    #: offload the closest-hit scan's per-sphere dot products to the MXU:
-    #: nb = c·d − o·d and the k1-folded c·o ride two (S_pad,4)@(4,128)
-    #: DEFAULT-precision matmuls per ray row (the systolic array is idle
-    #: during the scan and its latency hides under the remaining VPU
-    #: work), cutting the scan's VPU op count ~1.7x. DEFAULT matmuls
-    #: round operands to bf16, so the scan's candidate ORDERING is fuzzed
-    #: ~2^-8 relative near ties/tangents — the kernel re-evaluates the
-    #: WINNER's quadratic in exact f32 from the gathered params, so hit
-    #: geometry (t, hit point, normal) stays exact f32; only which-sphere
-    #: -wins near coincident surfaces can differ (measure-zero pixel
-    #: set). Default False until device-measured (interpret mode cannot
-    #: reproduce MXU rounding). NOTE: a HIGHEST-precision variant of this
-    #: idea measured 2.1x SLOWER in round 3 (PERF.md negative-results:
-    #: the (S,128) output planes round-trip through VMEM while the VPU
-    #: form streams temporaries in registers). This retry differs in ONE
-    #: measured dimension — DEFAULT matmuls are single-pass, 6x less MXU
-    #: time than HIGHEST, bought with the bf16 ordering fuzz above — and
-    #: the VMEM-round-trip objection still stands, so it stays opt-in
-    #: until scripts/bench_scan_mxu.py prints ADOPT on device.
-    scan_mxu: bool = False
-    #: gathered cluster scan — the round-4 per-lane culling design the
-    #: flat scan's roofline points at (PERF.md). Spheres are partitioned
-    #: host-side into GLOBALS (big spheres, exact-tested once per bounce)
-    #: plus grid-cell CLUSTERS of ``cluster_group`` members with
-    #: conservative bounding spheres (scene/accel.py). Each while-loop
-    #: iteration a lane (1) bound-tests all K clusters, (2) extracts its
-    #: ``cluster_cpi`` nearest not-yet-visited clusters (t-entry order,
-    #: index tie-break), (3) fetches their members' params by PER-LANE
-    #: dynamic gather (Mosaic same-shape ``take_along_axis`` → lane-axis
-    #: ``tpu.dynamic_gather``, new in jax 0.9.0) and exact-tests them,
-    #: pruning against the running best hit. A lane whose remaining
-    #: cluster entries can't beat its best COMPLETES the bounce in that
-    #: iteration — scatter/terminate/regenerate run under the bounce-done
-    #: mask, so per-lane cluster-count variance is absorbed exactly like
-    #: path-length variance already is (path regeneration). Exact member
-    #: tests mirror the flat scan's arithmetic bitwise and use the FULL
-    #: near→far fallback (= tracer.hit_world semantics; self-reentry is
-    #: covered naturally, no self-test carries). Measured on real cover
-    #: segment populations: ~2.25 clusters tested/segment (mean) at
-    #: cell 4.0 / group 16 → projected ~1.6-2.0x over the flat scan
-    #: (scripts/measure_cluster_hits.py). Requires a concrete scene (the
-    #: partition is host-built); falls back to the flat scan for traced
-    #: scenes and scenes small enough that clustering can't pay.
-    #: Default 'auto' = on for scenes >= CLUSTER_AUTO_MIN_SPHERES slots
-    #: (see cluster_scan_enabled) — the production default since the
-    #: round-4 device A/B ADOPTED it (bitwise-identical cover images at
-    #: 1.86-2.0x over the flat scan, scripts/bench_cluster.py; PERF.md).
-    cluster_scan: bool | str = "auto"
-    #: clusters extracted + exact-tested per iteration (amortizes the
-    #: per-iteration fixed work over more member tests; the cost model in
-    #: scripts/measure_cluster_hits.py sizes this). Default 1 — the
-    #: round-5 device ADOPT (box:cpi=1 at 1.989x over the flat scan,
-    #: bitwise + exact-segments equal, scripts/bench_cluster.py; the
-    #: round-4 gate had auto-rejected it on what turned out to be f32
-    #: reduction rounding in the segment totals, PERF.md)
-    cluster_cpi: int = 1
-    #: broad-phase bound shape: 'box' (member AABB slab test, ~27 VPU
-    #: ops/bound-row — the device-ADOPTED default, measured 1.86-2.0x
-    #: over the flat scan on the cover vs 1.36-1.41x for 'sphere',
-    #: scripts/bench_cluster.py) or 'sphere' (center + conservative
-    #: radius, ~24 ops).
-    #: The cover's small spheres sit in a thin slab over the ground
-    #: plane, so a grid cell's AABB (~cell x ~1.4 x cell) is far tighter
-    #: than its bounding sphere (radius ~ half the cell diagonal) for
-    #: the near-horizontal rays that dominate: measured on real cover
-    #: segment populations the mean tested-clusters/segment drops ~2.4x
-    #: (scripts/measure_cluster_hits.py [box] rows). Both bounds are
-    #: CONSERVATIVE (the box contains every member sphere), so hit
-    #: results are identical — only broad-phase visit ORDER can differ,
-    #: which the exact member tests make invisible except on exact
-    #: q ties. Device A/B: scripts/bench_cluster.py sweeps both.
-    cluster_bounds: str = "box"
-    #: grid cell size of the cluster partition (world units over (x, z))
-    cluster_cell: float = 4.0
-    #: spheres per cluster (gather/test granularity)
-    cluster_group: int = 16
-    #: pack the cluster walk's (entry q, cluster idx) visit order into
-    #: ONE sortable f32 key per bound slot: clear the 7 low mantissa
-    #: bits of the entry (a conservative FLOOR — entries only move
-    #: earlier, so no cluster is ever skipped) and OR the cluster index
-    #: into them (K <= 128 fits 7 bits). For positive f32 the bit
-    #: pattern is monotone in the value, so a single vector compare
-    #: replaces the two-array lexicographic cursor (q >, == & idx >) and
-    #: the second min-reduce that extracted the argmin — ~2.2x fewer
-    #: extract ops per iteration. Entries in the same 128-ulp bucket
-    #: visit in idx order instead of exact-q order (both are valid
-    #: conservative walks; images can differ only on exact member-q
-    #: ties, the documented cluster-scan caveat), and segment totals are
-    #: unchanged (bounces complete exactly once either way). Production
-    #: default since the round-5 device A/B ADOPTED kd:16+packed at
-    #: 3.101 s / 400.0 Mrays/s vs the grid default's 3.191 s (bitwise +
-    #: exact-segment equal; scripts/bench_cluster_kd.py — packed only
-    #: wins COMBINED with the kd partition: grid+packed measured 3.300).
-    cluster_packed_key: bool = True
-    #: partition builder: 'grid' (2-D cells of cluster_cell over (x,z),
-    #: the round-4 design) or 'kd' (balanced recursive median bisection
-    #: into exactly ceil(count/group) leaves — scene/accel.py
-    #: build_kd_clustered). The kernel's dominant broad-phase + extract
-    #: cost scales with ceil(K_pad/8) bound-table vreg rows, and the
-    #: cover's grid partition lands at K=36 → 40 padded rows with cells
-    #: only 9-16/16 full; the kd split packs the same spheres into K=32
-    #: leaves of 15-16 → 4 rows instead of 5, with tighter disjoint
-    #: boxes. Conservative bounds → bitwise-identical images (exact
-    #: member tests). Production default 'kd' since the round-5 device
-    #: A/B (scripts/bench_cluster_kd.py): kd:16+packed 3.101 s / 400.0
-    #: Mrays/s vs grid:16's 3.191 s / 388.7, both gates green — kd only
-    #: wins WITH the packed cursor (kd alone measured 3.413: the looser
-    #: boxes cost more visits than the row saving returns; packed's
-    #: cheaper per-row extract flips the balance).
-    cluster_partition: str = "kd"
-    #: per-sample cost of the CLUSTER kernel relative to the flat scan's
-    #: watchdog cost model, used only to budget spp launches
-    #: (pallas_kernel._pick_chunk_spp). The cluster kernel renders the
-    #: same scene ~2x faster than the flat scan, so 0.5 would fit ~2x
-    #: the spp per launch (cover: [41,153,153,153] -> [84,208,208]).
-    #: Default 1.0 — identical schedules to the flat scan — because the
-    #: fewer-launches idea is a MEASURED NEGATIVE: an exploratory sweep
-    #: showed +1.12x but did not reproduce in a drift-free window
-    #: (legacy 3.096 s vs 0.5-cost 3.156 s vs quarter-profile 3.106 s,
-    #: base re-run drift 1.001x — all within ~2% noise; the sweep's
-    #: window was itself ~14% slow, BENCH_sessions/
-    #: r5_chunk_schedule_AB_2026-08-19.log + scripts/bench_chunk_adopt
-    #: .py). Keeping 1.0 also keeps cluster-vs-flat renders bitwise
-    #: comparable at multi-chunk spp (the schedule sets the per-pixel
-    #: f32 accumulation order). Segment totals are schedule-invariant
-    #: either way. Ignored by the flat scan.
-    cluster_chunk_cost: float = 1.0
-    #: INTERNAL perf-probe knobs (scripts/probe_cluster_slopes.py): pad
-    #: the cluster bound table by 8·cluster_pad_k extra UNHITTABLE rows,
-    #: and every cluster's member list by cluster_pad_group extra
-    #: unhittable members. Image-, segment- and RNG-invariant by
-    #: construction (padding encodes unhittable: its broad-phase entry
-    #: sorts after every real candidate and its member quadratic has
-    #: disc < 0 for every real ray), so walls at different pads isolate
-    #: the kernel's per-phase cost slopes — broad+extract per bound-table
-    #: vreg row, member gather+test per member slot — on real hardware.
-    #: Leave at 0 in production. pad_global re-tests global sphere 0
-    #: (idempotent for the running min — strict < never re-updates) and
-    #: pad_banks appends winner-param banks the slot id can never
-    #: select, isolating the globals-phase and winner-gather shares of
-    #: the kernel's fixed tail.
-    cluster_pad_k: int = 0
-    cluster_pad_group: int = 0
-    cluster_pad_global: int = 0
-    cluster_pad_banks: int = 0
-    #: fuse the cluster walk's bounce-done test into the VISITING
-    #: iteration: extract cluster_cpi+1 nearest-unvisited selections,
-    #: visit the first cpi as usual, then complete the bounce in the
-    #: SAME iteration when the (cpi+1)-th entry cannot beat the
-    #: just-updated best hit. The unfused walk only discovers
-    #: completion at the START of the next iteration (first selection
-    #: vs the PRE-update best), so every bounce pays one full
-    #: slab+extract+gather iteration that visits nothing — with the
-    #: cover's measured ~1-2 visited clusters/bounce that is 33-50% of
-    #: all walk iterations. The visited SET and ORDER are unchanged
-    #: (both schemes stop at the first selection-chain entry >= the
-    #: best-q after the previous visit; the extra selection is read,
-    #: never visited), so images and exact segment totals are bitwise
-    #: identical by construction; cost is one extra extraction round
-    #: (~3 vector ops + a min-reduce per row) per iteration. Ignored
-    #: by the flat scan. PRODUCTION DEFAULT since the 2026-08-20 device
-    #: A/B: 1.417x on the cover (3.074 s -> 2.170 s, 571.8 Mrays/s),
-    #: bitwise-identical image, exact-equal segment totals
-    #: (BENCH_sessions/r5_fused_done_AB_ADOPT_2026-08-20.log).
-    cluster_fused_done: bool = True
-    #: INTERNAL residual-tail probe knobs (scripts/probe_cluster_slopes
-    #: .py): replay N extra copies of a per-iteration TAIL phase, folded
-    #: through runtime-never-true selects the compiler cannot prove away
-    #: (u01/unit-vector sums are bounded below, camera rays are finite —
-    #: neither provable at compile time through hashes and carries), so
-    #: each replay is pure measured cost and the render stays bitwise-
-    #: and segment-identical. pad_rng = one full scatter RNG block
-    #: (unit_vec + unit_sphere + glass + RR draws) at never-used salts;
-    #: pad_accum = one extra 3·k_slots out_ref load-mult-add-store
-    #: accumulation round; pad_genray = one extra camera-ray generation
-    #: at a shifted sample index. Work with BOTH the flat and cluster
-    #: kernels. Leave at 0 in production.
-    pad_rng: int = 0
-    pad_accum: int = 0
-    pad_genray: int = 0
-    #: rows-mesh load balancing: assign each shard every-Nth tile-row
-    #: BLOCK (round-robin over k_slots·r_sub-row blocks) instead of one
-    #: contiguous band. Per-pixel RNG/camera/accumulation are derived
-    #: from ABSOLUTE pixel coordinates, so the rendered values are
-    #: placement-independent — the full image is bitwise-identical to
-    #: the contiguous layout; only which shard computes which rows
-    #: changes. Matters when per-row cost is spatially concentrated
-    #: (the cover's glass/metal rows): a contiguous band mesh waits on
-    #: the most expensive band, while interleaving gives every shard a
-    #: cross-section of the image. Biggest effect on ADAPTIVE renders,
-    #: whose surviving-pixel sets concentrate hard (PERF.md spp_map).
-    #: Applies to the sorted/adaptive sharded paths on rows meshes with
-    #: >1 shard; other paths ignore it. Beyond the reference.
-    interleave_rows: bool = False
-    #: INTERNAL (set by the sharded driver; leave at 1): stride in
-    #: tile-row blocks between a shard's consecutive blocks. The kernel
-    #: maps local block j of a shard with row offset o to absolute rows
-    #: o + j·stride·(k_slots·r_sub) + [0, k_slots·r_sub); 1 = contiguous.
-    row_block_stride: int = 1
 
     def __post_init__(self):
         if self.max_depth < 1:
@@ -324,54 +91,9 @@ class TraceOptions:
                 f"sampler must be 'random' or 'stratified', got "
                 f"{self.sampler!r}"
             )
-        if self.cluster_scan not in (True, False, "auto"):
-            raise ValueError(
-                f"cluster_scan must be True, False or 'auto', got "
-                f"{self.cluster_scan!r}"
-            )
-        if self.cluster_cpi < 1:
-            raise ValueError(
-                f"cluster_cpi must be >= 1, got {self.cluster_cpi}"
-            )
-        if self.cluster_bounds not in ("sphere", "box"):
-            raise ValueError(
-                f"cluster_bounds must be 'sphere' or 'box', got "
-                f"{self.cluster_bounds!r}"
-            )
-        if min(self.cluster_pad_k, self.cluster_pad_group,
-               self.cluster_pad_global, self.cluster_pad_banks) < 0:
-            raise ValueError("cluster_pad_* knobs must be >= 0")
-        if min(self.pad_rng, self.pad_accum, self.pad_genray) < 0:
-            raise ValueError("pad_* probe knobs must be >= 0")
-        if not (0.0 < self.cluster_chunk_cost <= 1.0):
-            # > 1 would starve launches below the flat model's floor;
-            # the cluster kernel never does MORE work per sample than
-            # the flat scan (it tests a subset of the same spheres)
-            raise ValueError(
-                f"cluster_chunk_cost must be in (0, 1], got "
-                f"{self.cluster_chunk_cost}"
-            )
-        if self.cluster_partition not in ("grid", "kd"):
-            raise ValueError(
-                f"cluster_partition must be 'grid' or 'kd', got "
-                f"{self.cluster_partition!r}"
-            )
-        if self.row_block_stride < 1:
-            raise ValueError(
-                f"row_block_stride must be >= 1, got "
-                f"{self.row_block_stride}"
-            )
-        if self.cluster_scan is True and self.scan_mxu:
-            # 'auto' + scan_mxu resolves to the MXU variant silently
-            # (cluster_scan_enabled) — only an EXPLICIT double opt-in
-            # is a contradiction worth erroring on
-            raise ValueError(
-                "cluster_scan and scan_mxu are alternative scan "
-                "implementations — enable at most one"
-            )
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class DebugParams:
     """Device-side debug inputs (the u_cursor_point / u_selected_object
     uniforms, static/shader.frag:101-102)."""

@@ -121,7 +121,7 @@ def scatter(direction, rec: HitRecord, key, opts: TraceOptions,
     """Branch-free material evaluation (shader.frag:210-286).
 
     All three materials are computed for every lane and selected by
-    material type — the TPU answer to the GLSL if-chain. Returns
+    material type — the batched answer to the GLSL if-chain. Returns
     (did_scatter (P,), attenuation (P,3), new_direction (P,3)).
 
     ``uniforms``: optional (unit_vec_draw (P,3), unit_sphere_draw (P,3),

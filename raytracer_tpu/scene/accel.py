@@ -1,38 +1,31 @@
 """Acceleration structure: sphere clusters with bounding spheres.
 
 The reference tests every ray against all 15 sphere slots every bounce
-(static/shader.frag:182-193) — fine at 15, hopeless at ~500. GPUs use BVHs;
-pointer-chasing trees are hostile to the TPU's SIMD model, so we use the
-TPU-native equivalent: a flat two-level scheme.
+(static/shader.frag:182-193) — fine at 15, hopeless at ~500. Instead of a
+pointer-chasing tree this builds a flat two-level scheme.
 
 Spheres are grouped into fixed-size clusters with conservative bounding
 spheres; all cluster geometry is static host-prepared data — the device
 never builds or traverses pointers.
 
-HISTORY: the round-1/2 consumers of these builders (row-granular lax.cond
-cluster skip, static pl.when culling) were measured DEAD on the cover
-scene — secondary-bounce origins spread across the whole scene, so
-row/tile-granular candidate unions approach the full table (PERF.md
-negative-results ledger) — and were removed. The builders return in
-round 4 for a PER-LANE consumer: Mosaic (jax 0.9.0) lowers same-shape
-``take_along_axis`` to ``tpu.dynamic_gather``, so each lane can fetch its
-OWN cluster's member parameters; the gathered cluster scan tests only the
-clusters a lane's own ray hits. `scripts/measure_cluster_hits.py` sizes
-the partition (cell_size × group) on measured segment populations.
+Nothing in the render path walks these partitions yet: they are the
+host-side half of a per-ray cluster walk (ROADMAP S5), in which each
+thread tests only the clusters its own ray enters.
 """
 
 from __future__ import annotations
 
-import flax.struct
 import jax.numpy as jnp
 import numpy as np
+
+from raytracer_tpu.core import pytree
 
 from raytracer_tpu.scene.spheres import Scene
 
 DEFAULT_GROUP = 16
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class ClusteredScene:
     """A Scene reordered into clusters, plus cluster bounding spheres.
 
@@ -125,25 +118,24 @@ def build_clustered(scene: Scene, group: int = DEFAULT_GROUP) -> ClusteredScene:
     )
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class GridClusteredScene:
-    """Round-2 partition (validated in PERF.md): big spheres split into an
+    """Ground-separated partition: big spheres split into an
     always-tested "global" set; small spheres grouped by 2-D grid cell over
-    (x, z) with tight bounding spheres.
+    (x, z) with tight bounding spheres (or by kd bisection, _kd_chunks).
 
-    Measured on the RTiOW cover scene: a primary ray's segment intersects
-    only ~4.8 of 144 cell bounds (vs 9.1 of 16 Morton bounds), and a
-    128-ray row's union is ~4 — ~24x fewer exact sphere tests than the
-    flat scan once the kernel gates on these bounds.
+    Counted on the RTiOW cover scene (host-side, from the geometry): a
+    primary ray's segment intersects only ~4.8 of 144 cell bounds (vs 9.1
+    of 16 Morton bounds).
     """
 
     scene: Scene  # global spheres first, then cell clusters, padded per-cell
     bounds: jnp.ndarray  # (K, 4) cell bounding spheres
-    n_global: int = flax.struct.field(pytree_node=False)
-    group: int = flax.struct.field(pytree_node=False)
+    n_global: int = pytree.field(pytree_node=False)
+    group: int = pytree.field(pytree_node=False)
     uuid: jnp.ndarray  # slot -> original index (-1 padding)
     #: (K, 6) per-cluster member AABBs [lo xyz, hi xyz] — the alternative
-    #: broad-phase bound (TraceOptions.cluster_bounds='box'). The cover's
+    #: broad-phase bound to the bounding spheres. The cover's
     #: small spheres form a thin slab over the ground, so the AABB
     #: (~cell x ~1.4 x cell) is far tighter than the bounding sphere
     #: (radius ~ half the cell diagonal + member radius) for the
@@ -155,13 +147,10 @@ def _kd_chunks(idx, centers, radii, group):
     """Balanced recursive median bisection of sphere indices into
     ceil(n/group) leaves of <= group members each.
 
-    The gathered cluster scan's dominant broad-phase + extract cost
-    scales with ceil(K_pad/8) bound-table VREG ROWS (sublane groups of
-    8), not with K itself — so a partition whose K is an exact multiple
-    of 8 with full clusters strictly dominates a sparse one: the
-    cover's 4.0-cell grid lands at K=36 (40 padded rows) with cells
-    9-16/16 full, while this split packs the same 484 spheres into
-    K=32 leaves of 15-16 (32 rows). Splits are by the longest axis of
+    Full leaves mean fewer clusters for the same spheres: the cover's
+    4.0-cell grid lands at K=36 clusters 9-16/16 full, while this split
+    packs the same 484 spheres into K=32 leaves of 15-16. Splits are by
+    the longest axis of
     the member-AABB at the median, child sizes chosen in multiples of
     `group` so no leaf overflows and the leaf count is minimal."""
     idx = np.asarray(idx, np.int64)

@@ -1,10 +1,10 @@
 """Struct-of-arrays sphere scene pytree.
 
-The TPU-native replacement for the reference's two parallel scene
+The replacement for the reference's two parallel scene
 representations (host ``Vec<Sphere>`` src/glsl.rs:35-40 + device
 ``Sphere[15]`` uniforms static/shader.frag:55-61, 103). SoA layout means the
 per-bounce closest-hit scan is a vectorized sweep over contiguous arrays —
-exactly what the VPU wants — and the sphere count is a static shape with no
+exactly what vector hardware wants — and the sphere count is a static shape with no
 15-slot ABI cap (src/webgl.rs:225-274 set a hard 15).
 
 Negative radii are supported and flip the outward normal, which the RTiOW
@@ -17,7 +17,7 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
-import flax.struct
+from raytracer_tpu.core import pytree
 import jax.numpy as jnp
 import numpy as np
 
@@ -27,7 +27,7 @@ from raytracer_tpu.scene.materials import Material
 NO_SELECTED_OBJECT_ID = 1000
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class Scene:
     """All sphere + material data as SoA arrays of static length N.
 

@@ -45,7 +45,7 @@ class MraysMeter:
 
 @contextlib.contextmanager
 def device_trace(log_dir: str | None):
-    """Optional jax.profiler trace around a render (TPU timeline in
+    """Optional jax.profiler trace around a render (device timeline in
     TensorBoard). No-op when log_dir is None."""
     if log_dir is None:
         yield

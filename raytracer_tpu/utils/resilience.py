@@ -1,16 +1,11 @@
 """Device-fault detection and retry — the failure-recovery subsystem.
 
 The reference's only failure handling is readable panics + Result plumbing
-on GL setup (src/lib.rs:116, src/webgl.rs:16-64). On the TPU side real
-faults exist and have been observed in production here: very long single
-executions can crash the TPU worker ("UNAVAILABLE: TPU worker process
-crashed or restarted"), and calls issued while the worker restarts fail
-transiently. Measured behavior (scripts in PERF.md round-2 notes): the
-process recovers after the worker comes back — a sleep + retry of the
-whole jitted call succeeds, while device buffers from before the fault
-are lost. Hence the recovery unit is a WHOLE render (inputs re-uploaded
-from host), not an individual chunk whose accumulator died with the
-worker.
+on GL setup (src/lib.rs:116, src/webgl.rs:16-64). A device runtime can
+also fail transiently (UNAVAILABLE / DEADLINE_EXCEEDED while a worker
+restarts). Device buffers from before such a fault are lost, so the
+recovery unit is a WHOLE step or render re-run from host-side inputs,
+never an individual chunk whose accumulator died with the device.
 """
 
 from __future__ import annotations
@@ -44,12 +39,12 @@ def is_device_fault(exc: BaseException) -> bool:
 
 def retry_on_device_fault(fn=None, *, retries: int | None = None,
                           delay_s: float = 10.0):
-    """Decorator: re-run ``fn`` after a device fault (worker crash).
+    """Decorator: re-run ``fn`` after a transient device fault.
 
     Retries ``retries`` times (default: env RAYTRACER_TPU_DEVICE_RETRIES,
-    else 2) with ``delay_s`` sleeps for the worker to come back. The
+    else 2) with ``delay_s`` sleeps for the device to come back. The
     wrapped function must be restartable from host-side inputs — device
-    buffers do not survive a worker crash.
+    buffers do not survive a device fault.
     """
 
     def wrap(f):

@@ -1,15 +1,13 @@
-"""Full-frame convergence ground truth (VERDICT r2 missing #3 / next #6).
+"""Full-frame convergence ground truth for the cover scene.
 
-Renders the cover scene at FULL 1200x800, 500 spp both ways:
-  - Pallas production kernel (rr5 — the bench headline physics)
-  - the independent jnp tracer (rr0 — pure reference physics), row-banded
-    under the device watchdog budget (~36 min on one v5e chip)
-and reports mean|delta| (NaN pixels excluded and counted — the
-reference's own disabled near-zero guard NaNs ~1 in 1e7 samples,
-shader.frag:222-225). Writes CONVERGENCE_r03.json at the repo root and
-saves the jnp reference as float16 npz for future regression rounds.
+Renders the cover at FULL 1200x800, 500 spp both ways:
+  - the Pallas kernel (rr5 — the bench headline physics)
+  - the independent jnp tracer (rr0 — pure reference physics)
+prints mean|delta| as one JSON line, and saves the jnp image as the
+float16 golden tests/goldens/cover_jnp_rr0_500spp_f16.npz that
+chip_smoke.py and ``BENCH_CONVERGENCE=golden`` compare against.
 
-Run on the real TPU: python scripts/capture_convergence.py
+    python scripts/capture_convergence.py     # on one GPU
 """
 
 import os as _os
@@ -52,7 +50,7 @@ def main():
         TraceOptions(max_depth=depth, backend="jnp"),
     ))
     wall_j = time.perf_counter() - t0
-    print(f"jnp rr0 {w}x{h} {spp}spp (banded): {wall_j:.1f}s", flush=True)
+    print(f"jnp rr0 {w}x{h} {spp}spp: {wall_j:.1f}s", flush=True)
 
     diff = np.abs(img_p.astype(np.float64) - img_j.astype(np.float64))
     n_nan = int(np.isnan(diff).sum())
@@ -60,16 +58,14 @@ def main():
     p99 = float(np.nanpercentile(diff, 99))
     result = {
         "config": f"cover_{w}x{h}_spp{spp}_depth{depth}",
-        "pallas": "rr5 production kernel",
-        "reference": "independent jnp tracer, rr0, row-banded",
+        "pallas": "rr5 kernel",
+        "reference": "independent jnp tracer, rr0",
         "mean_abs_diff": round(mad, 6),
         "p99_abs_diff": round(p99, 6),
         "nan_px_channels": n_nan,
         "pallas_wall_s": round(wall_p, 2),
         "jnp_wall_s": round(wall_j, 2),
     }
-    with open(_os.path.join(ROOT, "CONVERGENCE_r03.json"), "w") as f:
-        json.dump(result, f, indent=1)
     np.savez_compressed(
         _os.path.join(ROOT, "tests", "goldens",
                       "cover_jnp_rr0_500spp_f16.npz"),

@@ -1,5 +1,5 @@
 """Cluster acceleration structure tests: bounds correctness and
-permutation integrity (restored round 4 for the gathered cluster scan)."""
+permutation integrity of the host-side partitions."""
 
 import numpy as np
 

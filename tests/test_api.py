@@ -1,6 +1,5 @@
 """Tests for the unified render entry point (render/api.py): input
-validation, backend resolution, and the row-banded jnp path (the
-watchdog-safety mechanism for very large renders, VERDICT r2 #6)."""
+validation and backend resolution per platform."""
 
 import jax
 import numpy as np
@@ -25,69 +24,6 @@ def test_step_fn_spp_zero_raises():
         make_step_fn(32, 16, spp=0)
 
 
-def test_cluster_scan_auto_resolution():
-    """The production default cluster_scan='auto' engages the gathered
-    cluster scan exactly for scenes >= CLUSTER_AUTO_MIN_SPHERES slots
-    (the round-4 device-ADOPTED config), defers to an explicit scan_mxu
-    opt-in, and validates its inputs."""
-    import dataclasses
-
-    from raytracer_tpu.render.options import (
-        CLUSTER_AUTO_MIN_SPHERES,
-        cluster_scan_enabled,
-    )
-
-    o = TraceOptions()
-    assert o.cluster_scan == "auto"
-    assert o.cluster_bounds == "box"  # the device-ADOPTED bound shape
-    assert cluster_scan_enabled(o, CLUSTER_AUTO_MIN_SPHERES)
-    assert cluster_scan_enabled(o, 487)
-    assert not cluster_scan_enabled(o, CLUSTER_AUTO_MIN_SPHERES - 1)
-    # explicit settings win regardless of scene size
-    assert cluster_scan_enabled(
-        dataclasses.replace(o, cluster_scan=True), 2
-    )
-    assert not cluster_scan_enabled(
-        dataclasses.replace(o, cluster_scan=False), 487
-    )
-    # 'auto' yields to an explicit alternative-scan opt-in ...
-    assert not cluster_scan_enabled(
-        dataclasses.replace(o, scan_mxu=True), 487
-    )
-    # ... but an explicit DOUBLE opt-in is a contradiction
-    with pytest.raises(ValueError, match="alternative scan"):
-        TraceOptions(cluster_scan=True, scan_mxu=True)
-    with pytest.raises(ValueError, match="cluster_scan"):
-        TraceOptions(cluster_scan="always")
-
-
-def test_cluster_auto_engages_on_big_scenes(monkeypatch):
-    """render_image_pallas under the default options must host-build the
-    cluster partition for a >= 64-slot scene and skip it for a small
-    one (spy at the partition gate — no render needed for the skip)."""
-    from raytracer_tpu.camera.camera import derive_camera
-    from raytracer_tpu.render import pallas_kernel as pk
-
-    calls = []
-    real = pk._cluster_partition
-
-    def spy(scene, opts):
-        calls.append(scene.count)
-        return real(scene, opts)
-
-    monkeypatch.setattr(pk, "_cluster_partition", spy)
-    key = jax.random.PRNGKey(0)
-    scene, cam, *_ = presets.get_config("cover", 64, 32)
-    pk.render_image_pallas(scene, derive_camera(cam), 64, 32, 1, key,
-                           TraceOptions(max_depth=2))
-    assert calls, "auto default did not reach the partition gate"
-    small, cam2, *_ = presets.get_config("demo", 64, 32)
-    calls.clear()
-    pk.render_image_pallas(small, derive_camera(cam2), 64, 32, 1, key,
-                           TraceOptions(max_depth=2))
-    assert not calls, "auto engaged on a sub-threshold scene"
-
-
 def test_resolve_backend_cpu():
     # tests run on the CPU backend: auto must resolve to jnp there
     assert resolve_backend("auto") == "jnp"
@@ -95,33 +31,39 @@ def test_resolve_backend_cpu():
     assert resolve_backend("jnp") == "jnp"
 
 
-def test_row_banded_render_matches_unbanded(monkeypatch, key):
-    """Forcing a tiny per-execution budget splits the render into row
-    bands. Banded renders use batch-position-keyed RNG per band, so
-    equality is statistical, not bitwise — but geometry/physics must
-    match and every band must land on its own rows."""
-    scene, cam, w, h = *presets.get_config("two_sphere", 48, 32)[:2], 48, 32
-    opts = TraceOptions(max_depth=8, backend="jnp")
-    spp = 64
-    full = np.asarray(render_image(scene, cam, w, h, spp, key, opts))
+@pytest.mark.parametrize("platform,backend,interpret", [
+    ("cpu", "jnp", True),
+    ("gpu", "pallas", False),
+    ("rocm", None, None),
+])
+def test_backend_and_interpret_rule_per_platform(monkeypatch, platform,
+                                                 backend, interpret):
+    """'auto' is fixed per platform (the kernel on the GPU, jnp on the
+    CPU); Pallas interprets only on the CPU; any other platform raises
+    instead of silently interpreting or falling back."""
+    from raytracer_tpu.render import pallas_kernel as pk
 
-    # per_row = 48*8*2 = 768; budget 13000 -> 16-row bands, 1-spp chunks
-    monkeypatch.setattr(api, "_JNP_EXEC_BUDGET", 13000.0)
-    assert api._jnp_band_rows(w, h, scene.count, 8) == 16
-    banded, stats = render_image(
-        scene, cam, w, h, spp, key, opts, return_stats=True
-    )
-    banded = np.asarray(banded)
-    assert banded.shape == (h, w, 3)
-    assert np.isfinite(banded).all()
-    assert float(stats["segments"]) > 0
-    # independent MC estimates of the same image at 64 spp
-    assert np.abs(banded - full).mean() < 0.05
-    # band 0 of a multi-band render keeps per-band keys distinct from
-    # band 1: identical rows would indicate a stream-reuse bug
-    assert not np.array_equal(banded[:16], banded[16:])
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    assert resolve_backend("jnp") == "jnp"
+    if backend is None:
+        with pytest.raises(ValueError, match=platform):
+            resolve_backend("auto")
+        with pytest.raises(ValueError, match=platform):
+            pk.interpret_mode()
+    else:
+        assert resolve_backend("auto") == backend
+        assert pk.interpret_mode() is interpret
 
 
-def test_band_rows_full_height_when_cheap():
-    # small renders never band (and stay bitwise-stable vs older rounds)
-    assert api._jnp_band_rows(48, 32, 2, 8) == 32
+def test_jnp_render_is_one_program(key):
+    """The jnp path renders in ONE jitted call per static configuration
+    (no host loop over bands or spp chunks): a repeat render reuses the
+    cached executable and reproduces the image bitwise."""
+    scene, cam = presets.get_config("two_sphere", 48, 32)[:2]
+    opts = TraceOptions(max_depth=4, backend="jnp")
+    api._jitted_jnp.cache_clear()
+    a, st = render_image(scene, cam, 48, 32, 5, key, opts, return_stats=True)
+    b = render_image(scene, cam, 48, 32, 5, key, opts)
+    assert api._jitted_jnp.cache_info().currsize == 1
+    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert float(st["segments"]) >= 48 * 32 * 5

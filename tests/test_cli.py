@@ -70,12 +70,10 @@ def test_cli_book_physics(tmp_path):
 
 def test_cli_adaptive_spp_map(tmp_path, monkeypatch):
     """--spp-map saves the adaptive sample-density heatmap next to the
-    render (forced multi-chunk schedule so early termination engages at
-    test scale)."""
+    render (small chunks so early termination engages at test scale)."""
     from raytracer_tpu.render import pallas_kernel as pk
 
-    monkeypatch.setattr(pk, "_pick_chunk_spp",
-                        lambda spp, *a, **k: min(spp, 3))
+    monkeypatch.setattr(pk, "ADAPTIVE_AUTO_CHUNK", 3)
     monkeypatch.setattr(pk, "ADAPTIVE_MIN_N", 4)
     out, mp = str(tmp_path / "r.png"), str(tmp_path / "m.png")
     rc = main([

@@ -72,7 +72,7 @@ def test_fullframe_ground_truth_integrity():
     plausible cover render: right shape/dtype, gamma-space range, no NaN
     channels, and the recorded global statistics (a corrupted or
     accidentally re-captured file fails here before it silently weakens
-    the device regression gate)."""
+    the golden-gated checks)."""
     z = np.load(os.path.join(
         GOLDEN_DIR, "cover_jnp_rr0_500spp_f16.npz"
     ))
@@ -80,7 +80,7 @@ def test_fullframe_ground_truth_integrity():
     assert img.shape == (800, 1200, 3) and img.dtype == np.float16
     assert int(np.isnan(img).sum()) == 0
     assert float(img.min()) >= 0.0 and float(img.max()) <= 1.0
-    # captured stats (CONVERGENCE_r03 session): mean luminance of the
+    # captured stats (the capture session): mean luminance of the
     # cover scene's gamma image; generous band — catches wrong-scene /
     # wrong-space / truncated captures, not MC noise
     assert 0.55 < float(img.mean()) < 0.80, float(img.mean())

@@ -1,5 +1,6 @@
-"""Pallas megakernel tests (interpret mode on CPU): agreement with the jnp
-reference tracer, determinism, chunking invariance, option plumbing."""
+"""Pallas kernel tests (interpret mode on CPU): agreement with the jnp
+reference tracer, determinism, launch/block invariance, padding, the
+in-kernel RNG, option plumbing."""
 
 import jax
 import jax.numpy as jnp
@@ -60,18 +61,41 @@ def test_deterministic():
     assert not np.array_equal(np.asarray(a), np.asarray(c))
 
 
-def test_chunking_invariance(monkeypatch):
-    """Splitting spp across launches must not change the image."""
+def _linear_launch(scene, dcam, w, h, spp, key, opts, sample_offset=0,
+                   block=pk.DEFAULT_BLOCK):
+    """Linear per-pixel sums of one kernel launch, (H, W, 3), plus the
+    exact segment pair."""
+    scene, uuid, g_full = pk._apply_split(
+        scene, pk._containable_split(scene, dcam, opts)
+    )
+    sums, _, segs = pk.trace_band(
+        scene, uuid, dcam, None, pk._seed_from_key(key), sample_offset, 0,
+        width=w, height=h, band_h=h, spp=spp, opts=opts, g_full=g_full,
+        block=block,
+    )
+    return np.asarray(pk._band_image(sums[:3], w, h)), pk._seg_pair(segs)
+
+
+def _seg_int(pair):
+    hi, lo = (int(v) for v in np.asarray(pair))
+    return hi * 4096 + lo
+
+
+def test_chunking_invariance():
+    """Splitting spp across launches (absolute sample offsets) must not
+    change the per-pixel sample decomposition: 3+3+2 launches sum to the
+    one-launch linear image up to f32 summation order, with exactly the
+    same segments."""
     scene, cam, *_ = presets.get_config("two_sphere", 64, 32)
     dcam = derive_camera(cam)
-    opts = TraceOptions(max_depth=4)
+    opts = TraceOptions(max_depth=4, gamma=False)
     key = jax.random.PRNGKey(0)
-    whole = pk.render_image_pallas(scene, dcam, 64, 32, 8, key, opts)
-    monkeypatch.setattr(pk, "_pick_chunk_spp", lambda *a, **k: 3)  # force 3+3+2
-    split = pk.render_image_pallas(scene, dcam, 64, 32, 8, key, opts)
-    np.testing.assert_allclose(
-        np.asarray(whole), np.asarray(split), rtol=1e-5, atol=1e-6
-    )
+    whole, seg_w = _linear_launch(scene, dcam, 64, 32, 8, key, opts)
+    parts = [_linear_launch(scene, dcam, 64, 32, n, key, opts, off)
+             for off, n in ((0, 3), (3, 3), (6, 2))]
+    split = sum(p[0] for p in parts)
+    np.testing.assert_allclose(whole, split, rtol=1e-5, atol=1e-6)
+    assert _seg_int(seg_w) == sum(_seg_int(p[1]) for p in parts)
 
 
 def test_nonaligned_resolution():
@@ -177,7 +201,7 @@ def test_containable_split_analysis():
     assert not flags[3]                 # isolated metal: near-only
     assert not flags[6:].any()          # isolated extras: near-only
     perm, g_full = pk._containable_split(scene, dcam, TraceOptions())
-    assert g_full % 8 == 0 and g_full < pk._pad_spheres(scene.count)
+    assert g_full == int(flags.sum()) and g_full < scene.count
     # all containable spheres land in the full-logic prefix (perm None =
     # scene already laid out containable-first)
     if perm is None:
@@ -233,115 +257,24 @@ def test_split_scan_camera_inside_sphere():
     assert a[..., 0].mean() > a[..., 2].mean() * 0.9
 
 
-@pytest.mark.parametrize("sort_pixels", [True, False])
-def test_k_slots_bitwise_invariance(monkeypatch, sort_pixels):
-    """K-slot virtual tiles (each lane walks K pixels inside the one
-    regeneration while_loop) are pure layout: per-pixel RNG streams and
-    per-pixel accumulation order depend only on (ipx, ipy), so every K
-    must produce the bit-identical image — sorted and unsorted."""
-    import dataclasses
-
-    monkeypatch.setattr(pk, "_pick_chunk_spp", lambda spp, *a, **k: min(spp, 3))
-    scene, cam, *_ = presets.get_config("cover", 256, 64)
-    dcam = derive_camera(cam)
-    opts = TraceOptions(
-        max_depth=8, russian_roulette_depth=5, sort_pixels=sort_pixels
-    )
-    key = jax.random.PRNGKey(7)
-    imgs, segs = [], []
-    for k_slots in (1, 2, 4):
-        img, stats = pk.render_image_pallas(
-            scene, dcam, 256, 64, 8, key, opts, return_stats=True,
-            k_slots=k_slots,
-        )
-        imgs.append(np.asarray(img))
-        segs.append(float(stats["segments"]))
-    assert np.array_equal(imgs[0], imgs[1])
-    assert np.array_equal(imgs[0], imgs[2])
-    assert segs[0] == segs[1] == segs[2]
-
-
-def test_sorted_multichunk_bitwise_equals_unsorted(monkeypatch):
-    """Profile-guided pixel sorting (multi-chunk renders re-pack pixels by
-    measured path cost) must not change the image by a single bit: per-pixel
-    math depends only on (ipx, ipy) and chunk accumulation order is
-    preserved."""
-    import dataclasses
-
-    monkeypatch.setattr(pk, "_pick_chunk_spp", lambda spp, *a, **k: min(spp, 3))
-    scene, cam, *_ = presets.get_config("cover", 256, 32)
-    dcam = derive_camera(cam)
-    opts = TraceOptions(max_depth=10, russian_roulette_depth=5)
-    a, sa = pk.render_image_pallas(
-        scene, dcam, 256, 32, 10, jax.random.PRNGKey(3), opts,
-        return_stats=True,
-    )
-    b, sb = pk.render_image_pallas(
-        scene, dcam, 256, 32, 10, jax.random.PRNGKey(3),
-        dataclasses.replace(opts, sort_pixels=False), return_stats=True,
-    )
-    assert np.array_equal(np.asarray(a), np.asarray(b))
-    assert float(sa["segments"]) == float(sb["segments"])
-
-
-def test_unsorted_fused_scan_bitwise_equals_loop(monkeypatch):
-    """The unsorted fused chunk scan (one device program for all uniform
-    chunks — the enable_debug / sort_pixels-off analog of the sorted
-    fusion) must reproduce the chunk-at-a-time loop bit-for-bit. The
-    loop path is reconstructed by forcing uniform=False on the SAME
-    schedule; enable_debug is on so the debug-overlay closure is
-    exercised inside the lax.scan body."""
-    from raytracer_tpu.render.options import DebugParams
-
-    monkeypatch.setattr(pk, "_pick_chunk_spp", lambda spp, *a, **k: min(spp, 3))
-    scene, cam, *_ = presets.get_config("two_sphere", W, H)
-    dcam = derive_camera(cam)
-    opts = TraceOptions(max_depth=4, enable_debug=True)
-    debug = DebugParams(
-        cursor_point=jnp.asarray([0.0, 0.0, -0.5], jnp.float32),
-        selected_object=jnp.asarray(0, jnp.int32),
-    )
-    key = jax.random.PRNGKey(5)
-    sizes, uniform = pk._chunk_schedule(10, 3)
-    assert uniform and len(sizes) > 2  # the fused path really engages
-    a, sa = pk.render_image_pallas(
-        scene, dcam, W, H, 10, key, opts, debug, return_stats=True
-    )
-    orig_sched = pk._chunk_schedule
-    monkeypatch.setattr(
-        pk, "_chunk_schedule",
-        lambda spp, chunk: (orig_sched(spp, chunk)[0], False),
-    )
-    b, sb = pk.render_image_pallas(
-        scene, dcam, W, H, 10, key, opts, debug, return_stats=True
-    )
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    assert float(sa["segments"]) == float(sb["segments"])
-
-
 def test_chunk_schedule_invariants():
-    """The shared launch schedule: sizes sum to spp, the profile chunk is
-    bounded by the base budget, sorted chunks by 2x; uniform schedules
-    (the fused-scan path) are found for realistic spp/chunk ratios."""
-    for spp, chunk in [(500, 85), (500, 42), (100, 85), (8, 3), (10, 3),
-                       (1, 5), (86, 85), (10000, 85), (100000, 85),
-                       (7300, 85), (173, 86)]:
-        sizes, uniform = pk._chunk_schedule(spp, chunk)
+    """The adaptive launch schedule: sizes sum to spp, the first chunk is
+    in [chunk, 2·chunk), the rest are equal (one lax.scan); fewer than two
+    chunks means no schedule (the render runs fixed-spp)."""
+    for spp, chunk in [(500, 16), (27, 3), (100, 7), (10, 3), (32, 16),
+                       (33, 16), (10000, 16)]:
+        sizes = pk.adaptive_schedule(spp, chunk)
         assert sum(sizes) == spp, (spp, chunk, sizes)
-        if spp > chunk:
-            assert 1 <= sizes[0] <= chunk
-            assert all(c <= 2 * chunk for c in sizes[1:])
-            if uniform:
-                assert len(set(sizes[1:])) == 1
-    # the bench workload fuses: one profile chunk + uniform sorted chunks
-    sizes, uniform = pk._chunk_schedule(500, 85)
-    assert uniform and len(sizes) >= 3
+        assert chunk <= sizes[0] < 2 * chunk
+        assert set(sizes[1:]) == {chunk}
+    for spp, chunk in [(1, 16), (15, 16), (31, 16), (5, 3)]:
+        assert pk.adaptive_schedule(spp, chunk) is None
 
 
 def test_containable_camera_margin_scales_with_distance():
     """Lens-ray origins carry f32 roundoff ~eps*|origin|: a sphere the
     camera sits just outside must be containable when the gap is below
-    that scale-relative bound (VERDICT-class edge: far-from-origin
+    that scale-relative bound (edge case: far-from-origin
     cameras with aperture)."""
     import dataclasses
 
@@ -369,9 +302,8 @@ def test_containable_camera_margin_scales_with_distance():
 
 def test_zero_radius_sphere_does_not_poison_gather():
     """A degenerate zero-radius slot (e.g. an interactive radius edit
-    passing through 0) must not corrupt the image: 1/r = inf in the MXU
-    gather table becomes NaN in the bf16 split, and NaN*0 would poison
-    every lane's gathered params."""
+    passing through 0) must not corrupt the image: its table row keeps a
+    finite 1/r, and a lane can never win it with a positive t."""
     from raytracer_tpu.scene.materials import Material
     from raytracer_tpu.scene.spheres import make_scene
 
@@ -401,7 +333,7 @@ def test_debug_overlay_in_kernel():
     """enable_debug runs IN the kernel (no jnp fallback): the cursor
     marker paints solid blue, the selection outline solid red, and the
     overlay matches the jnp tracer's debug branch statistically
-    (VERDICT r2 #4; shader.frag:306-318)."""
+    (shader.frag:306-318)."""
     from raytracer_tpu.render.options import DebugParams
 
     scene, cam, *_ = presets.get_config("two_sphere", W, H)
@@ -467,7 +399,7 @@ def test_debug_none_matches_plain_render():
 
 
 def test_high_spp_parity_tight():
-    """Tightened physics-drift net (r2 verdict weak #8): at 96 spp the
+    """Tightened physics-drift net: at 96 spp the
     independent tracers agree to ~3x the 8-spp noise bound. Measured
     0.0086 mean|Δ| on this config; 0.012 leaves noise headroom while
     still catching percent-level physics drift the loose 8-spp bound
@@ -484,7 +416,7 @@ def test_high_spp_parity_tight():
     assert np.abs(p - j).mean() < 0.012
 
 
-def test_stratified_matches_jnp_and_chunk_invariant(monkeypatch):
+def test_stratified_matches_jnp_and_chunk_invariant():
     """TraceOptions.sampler='stratified' on the Pallas kernel: statistical
     parity with the jnp tracer's stratified path (independent CP-rotation
     streams, so equality is to noise level), and bitwise-stable under spp
@@ -498,387 +430,94 @@ def test_stratified_matches_jnp_and_chunk_invariant(monkeypatch):
     img_j = np.asarray(render_image_jnp(scene, dcam, W, H, 8, key, opts))
     assert np.abs(img_p - img_j).mean() < 0.03
 
-    o4 = TraceOptions(max_depth=4, sampler="stratified")
-    whole = np.asarray(pk.render_image_pallas(scene, dcam, 64, 32, 8, key, o4))
-    monkeypatch.setattr(pk, "_pick_chunk_spp", lambda *a, **k: 3)
-    split = np.asarray(pk.render_image_pallas(scene, dcam, 64, 32, 8, key, o4))
+    o4 = TraceOptions(max_depth=4, sampler="stratified", gamma=False)
+    whole, _ = _linear_launch(scene, dcam, 64, 32, 8, key, o4)
+    split = sum(_linear_launch(scene, dcam, 64, 32, n, key, o4, off)[0]
+                for off, n in ((0, 3), (3, 3), (6, 2)))
     np.testing.assert_allclose(whole, split, rtol=1e-5, atol=1e-6)
 
 
-def test_scan_mxu_matches_standard_and_jnp(monkeypatch):
-    """TraceOptions.scan_mxu=True: the MXU dot-product offload of the
-    closest-hit scan. In interpret mode the matmuls are f32-exact, so
-    the only divergence from the standard kernel is summation ORDER in
-    nb / c_coef (matmul accumulation vs the fma chain) plus the exact
-    winner re-evaluation — images must agree to rounding noise and stay
-    within the standard statistical band of the jnp tracer. Exercises
-    the split-scan (glass scene => self-test carries) and the sorted
-    multi-chunk (permuted pixel_map) input plumbing."""
-    import dataclasses
-
-    scene, cam, *_ = presets.get_config("demo", W, H)
+@pytest.mark.parametrize("sampler", ["random", "stratified"])
+@pytest.mark.parametrize("block", [32, 64, 128, 256])
+def test_block_bitwise_invariance(block, sampler):
+    """One lane per pixel and RNG keyed on absolute pixel coordinates: the
+    linear image and the exact segment count are bitwise independent of
+    the block size, i.e. of how the grid is split. The reference is the
+    whole 64x32 image in a single 2048-lane block."""
+    scene, cam, *_ = presets.get_config("demo", 64, 32)
     dcam = derive_camera(cam)
-    key = jax.random.PRNGKey(0)
-    opts = TraceOptions(max_depth=6)
-    opts_m = dataclasses.replace(opts, scan_mxu=True)
-    img_s = np.asarray(pk.render_image_pallas(scene, dcam, W, H, 8, key, opts))
-    img_m = np.asarray(
-        pk.render_image_pallas(scene, dcam, W, H, 8, key, opts_m)
-    )
-    # ulp-level t differences can flip isolated boundary decisions for a
-    # few samples; the mean must stay far below physics tolerance
-    assert np.abs(img_m - img_s).mean() < 5e-3
-    img_j = np.asarray(render_image_jnp(scene, dcam, W, H, 8, key, opts))
-    assert np.abs(img_m - img_j).mean() < 0.03
-
-    # deterministic
-    img_m2 = np.asarray(
-        pk.render_image_pallas(scene, dcam, W, H, 8, key, opts_m)
-    )
-    np.testing.assert_array_equal(img_m, img_m2)
-
-    # sorted multi-chunk path: mxt_ref + pix_ref unpack order
-    monkeypatch.setattr(pk, "_pick_chunk_spp", lambda *a, **k: 3)
-    img_mc = np.asarray(
-        pk.render_image_pallas(scene, dcam, 64, 32, 8, key, opts_m)
-    )
-    img_sc = np.asarray(
-        pk.render_image_pallas(scene, dcam, 64, 32, 8, key, opts)
-    )
-    assert np.abs(img_mc - img_sc).mean() < 5e-3
+    key = jax.random.PRNGKey(4)
+    opts = TraceOptions(max_depth=6, russian_roulette_depth=3,
+                        sampler=sampler, gamma=False)
+    ref, seg_ref = _linear_launch(scene, dcam, 64, 32, 3, key, opts,
+                                  block=2048)
+    img, seg = _linear_launch(scene, dcam, 64, 32, 3, key, opts, block=block)
+    np.testing.assert_array_equal(img, ref)
+    assert _seg_int(seg) == _seg_int(seg_ref)
 
 
-def test_cluster_scan_bitwise_equals_flat(monkeypatch):
-    """TraceOptions.cluster_scan: the gathered cluster scan must produce
-    BITWISE-identical images and segment counts to the flat scan — the
-    member/global exact tests mirror the flat arithmetic op-for-op and
-    the conservative bound walk visits every sphere that can win (only
-    exact q ties may differ: visit order vs lowest slot — none occur on
-    these scenes). Covers the single-chunk, sorted multi-chunk, and
-    stratified paths on the 487-sphere cover partition."""
-    import dataclasses
-
-    scene, cam, *_ = presets.get_config("cover", W, H)
+@pytest.mark.parametrize("w,h", [(1, 1), (3, 5), (17, 9), (100, 53)])
+def test_padding_non_power_of_two(w, h):
+    """Pixel counts that no block divides: padding lanes are never alive,
+    so they trace nothing and are cropped, and the pixels are the same at
+    another block size."""
+    scene, cam, *_ = presets.get_config("three_sphere", w, h)
     dcam = derive_camera(cam)
-    key = jax.random.PRNGKey(0)
-    # flat baseline pinned: cover >= 64 slots would resolve 'auto' → on
-    opts = TraceOptions(max_depth=12, russian_roulette_depth=5,
-                        cluster_scan=False)
-    opts_c = dataclasses.replace(opts, cluster_scan=True)
-
-    part = pk._cluster_partition(scene, opts_c)
-    assert part is not None
-    assert part.bounds.shape[0] > 1 and part.n_global >= 1
-    # every active sphere appears exactly once in the reordered slots
-    uu = np.asarray(part.uuid)
-    assert sorted(uu[uu >= 0]) == list(range(scene.count))
-
-    img_s, st_s = pk.render_image_pallas(
-        scene, dcam, W, H, 4, key, opts, return_stats=True
-    )
-    img_c, st_c = pk.render_image_pallas(
-        scene, dcam, W, H, 4, key, opts_c, return_stats=True
-    )
-    np.testing.assert_array_equal(np.asarray(img_c), np.asarray(img_s))
-    assert float(st_c["segments"]) == float(st_s["segments"])
-
-    # sorted multi-chunk (profile + plan + fused scan), stratified
-    # sampler — ONE sampler only: the random sorted path is already
-    # covered flat-side elsewhere, and every extra config here is a
-    # full CPU compile of the megakernel (suite-time budget)
-    monkeypatch.setattr(pk, "_pick_chunk_spp", lambda *a, **k: 3)
-    o1 = dataclasses.replace(opts, sampler="stratified")
-    o2 = dataclasses.replace(opts_c, sampler="stratified")
-    a = np.asarray(pk.render_image_pallas(scene, dcam, W, H, 9, key, o1))
-    b = np.asarray(pk.render_image_pallas(scene, dcam, W, H, 9, key, o2))
-    np.testing.assert_array_equal(a, b)
+    key = jax.random.PRNGKey(1)
+    opts = TraceOptions(max_depth=4)
+    img, stats = pk.render_image_pallas(scene, dcam, w, h, 2, key, opts,
+                                        return_stats=True, block=32)
+    img = np.asarray(img)
+    assert img.shape == (h, w, 3) and np.isfinite(img).all()
+    # every sample traces its camera segment, at most max_depth of them
+    assert w * h * 2 <= float(stats["segments"]) <= w * h * 2 * 4
+    img64 = pk.render_image_pallas(scene, dcam, w, h, 2, key, opts, block=64)
+    np.testing.assert_array_equal(img, np.asarray(img64))
 
 
-def test_cluster_chunk_schedule_matches_flat(monkeypatch):
-    """The cluster path must budget spp chunks with the ORIGINAL scene
-    count, not the padded partition layout's: the chunk schedule sets the
-    per-pixel f32 accumulation order, so a different schedule silently
-    costs bitwise parity with the flat scan at multi-chunk spp (measured
-    on device: 500-spp cover drifted <=6.6e-7 with segments equal before
-    the chunk_count plumb-through). No render needed — intercept the
-    picker and compare the count it was handed."""
-    import dataclasses
-
-    scene, cam, *_ = presets.get_config("cover", W, H)
-    dcam = derive_camera(cam)
-    key = jax.random.PRNGKey(0)
-    # same opts/spp as test_cluster_scan_bitwise_equals_flat so the
-    # megakernel compiles hit the in-process jit cache when the file
-    # runs in order (the spy intercepts at dispatch time either way)
-    opts = TraceOptions(max_depth=12, russian_roulette_depth=5,
-                        cluster_scan=False)
-    opts_c = dataclasses.replace(opts, cluster_scan=True)
-
-    part = pk._cluster_partition(scene, opts_c)
-    assert part is not None
-    assert part.scene.count > scene.count  # padding present: test bites
-
-    seen = []
-    scales = {False: set(), True: set()}
-    in_cluster = [False]
-    real = pk._pick_chunk_spp
-
-    def spy(spp, p, s_count, *a, **k):
-        seen.append(s_count)
-        scales[in_cluster[0]].add(k.get("cost_scale", 1.0))
-        return real(spp, p, s_count, *a, **k)
-
-    monkeypatch.setattr(pk, "_pick_chunk_spp", spy)
-    pk.render_image_pallas(scene, dcam, W, H, 4, key, opts)
-    in_cluster[0] = True
-    pk.render_image_pallas(scene, dcam, W, H, 4, key, opts_c)
-    # every picker call — however many a path legitimately makes — must
-    # see the ORIGINAL count, never the padded partition layout's
-    assert seen and set(seen) == {scene.count}
-    # ... and the cluster path (only) threads the cluster_chunk_cost
-    # knob through (default 1.0 = flat-identical schedules — the
-    # fewer-launches idea is a measured negative, options.py; the knob
-    # stays for probes, scripts/bench_chunk_adopt.py)
-    assert scales[False] == {1.0}
-    assert scales[True] == {opts_c.cluster_chunk_cost}
+def _np_lowbias32(x):
+    x = np.asarray(x, np.uint64)
+    m = np.uint64(0xFFFFFFFF)
+    x ^= x >> np.uint64(16)
+    x = (x * np.uint64(0x7FEB352D)) & m
+    x ^= x >> np.uint64(15)
+    x = (x * np.uint64(0x846CA68B)) & m
+    x ^= x >> np.uint64(16)
+    return x.astype(np.uint32)
 
 
-def test_pick_chunk_spp_cost_scale():
-    """cost_scale rescales the watchdog budget linearly: 0.5 doubles
-    the spp one launch can carry (cover: flat model chunk 85 ->
-    schedule [41,153,153,153]; 0.5-cost chunk 170 -> [84,208,208]).
-    Schedule effect on wall is a measured negative (options.py), but
-    the knob's MATH must stay exact — probe scripts rely on it."""
-    flat = pk._pick_chunk_spp(500, 1200 * 800, 488, 50, rr_depth=5)
-    half = pk._pick_chunk_spp(500, 1200 * 800, 488, 50, rr_depth=5,
-                              cost_scale=0.5)
-    assert flat == 85 and half == 170
-    assert pk._chunk_schedule(500, flat) == ([41, 153, 153, 153], True)
-    assert pk._chunk_schedule(500, half) == ([84, 208, 208], True)
-    # scale never lifts the spp cap
-    assert pk._pick_chunk_spp(8, 100, 10, 8, cost_scale=0.25) == 8
-    with pytest.raises(ValueError, match="cluster_chunk_cost"):
-        TraceOptions(cluster_chunk_cost=0.0)
-    with pytest.raises(ValueError, match="cluster_chunk_cost"):
-        TraceOptions(cluster_chunk_cost=1.5)
+@pytest.mark.parametrize("case", ["lowbias32", "hash32", "u01"])
+def test_rng_matches_numpy_uint32_reference(case):
+    """The in-kernel RNG is plain uint32 arithmetic (wrapping multiplies,
+    logical shifts): it must match a numpy reference bit for bit."""
+    x = np.random.default_rng(0).integers(0, 2**32, 4096, dtype=np.uint64)
+    x = x.astype(np.uint32)
+    x[:4] = [0, 1, 0xFFFFFFFF, 0x80000000]
+    if case == "lowbias32":
+        got, want = pk._lowbias32(jnp.asarray(x)), _np_lowbias32(x)
+    elif case == "hash32":
+        ctr = (np.arange(4096, dtype=np.uint64) * 7919).astype(np.uint32)
+        got = pk._hash32(jnp.asarray(x), jnp.asarray(ctr), 5)
+        c = ((ctr.astype(np.uint64) + 5) * 0x9E3779B9) & 0xFFFFFFFF
+        want = _np_lowbias32(x ^ c.astype(np.uint32))
+    else:
+        got = pk._to_u01(jnp.asarray(x))
+        want = (x >> 8).astype(np.float32) * np.float32(2.0**-24)
+        assert float(got.max()) < 1.0 and float(got.min()) >= 0.0
+    np.testing.assert_array_equal(np.asarray(got), want)
 
 
-def test_cluster_scan_box_bounds_bitwise_equals_flat():
-    """cluster_bounds='box': the AABB broad phase is conservative (the
-    box contains every member sphere), so the exact member tests make
-    the image and segment count BITWISE-identical to the flat scan —
-    only broad-phase visit ORDER differs from the sphere bound, which
-    is invisible except on exact q ties (none on the cover). The box
-    path is the round-4 perf default candidate: measured on real cover
-    segment populations it tests ~2.4x fewer clusters per segment than
-    the bounding sphere (scripts/measure_cluster_hits.py)."""
-    import dataclasses
-
-    scene, cam, *_ = presets.get_config("cover", W, H)
-    dcam = derive_camera(cam)
-    key = jax.random.PRNGKey(5)
-    opts = TraceOptions(max_depth=12, russian_roulette_depth=5)
-    opts_b = dataclasses.replace(
-        opts, cluster_scan=True, cluster_bounds="box", cluster_cpi=1
+@pytest.mark.parametrize("counts", [
+    [0, 1, 4095, 4096, 4097],
+    [2**31 - 1] * 7,
+    list(range(0, 10**7, 9973)),
+])
+def test_segment_pair_exact(counts):
+    """Per-block int32 segment counts sum into an exact [hi, lo] pair —
+    no f32 rounding until the one final conversion."""
+    pair = np.asarray(pk._seg_pair(jnp.asarray(counts, jnp.int32)))
+    assert int(pair[0]) * 4096 + int(pair[1]) == sum(counts)
+    assert float(pk._seg_value(jnp.asarray(pair))) == pytest.approx(
+        float(sum(counts)), rel=1e-7
     )
 
-    # host-side geometry: every member sphere is inside its cluster box
-    part = pk._cluster_partition(scene, opts_b)
-    bx = np.asarray(part.boxes)
-    assert bx.shape == (part.bounds.shape[0], 6)
-    g = part.group
-    c = np.asarray(part.scene.center)[part.n_global:].reshape(-1, g, 3)
-    r = np.abs(np.asarray(part.scene.radius))[part.n_global:].reshape(-1, g)
-    act = (np.asarray(part.uuid)[part.n_global:] >= 0).reshape(-1, g)
-    for ci in range(bx.shape[0]):
-        m = act[ci]
-        assert np.all(c[ci][m] - r[ci][m, None] >= bx[ci, :3] - 1e-6)
-        assert np.all(c[ci][m] + r[ci][m, None] <= bx[ci, 3:] + 1e-6)
-    # padding rows of the device table are the distant-point encoding
-    btab = np.asarray(pk._cluster_tables(
-        part.scene, part.boxes, part.uuid, part.n_global, g, 8
-    )[0])
-    assert btab.shape[1] == 6
-    assert np.all(btab[bx.shape[0]:] == 1e9)
-
-    img_s, st_s = pk.render_image_pallas(
-        scene, dcam, W, H, 4, key, opts, return_stats=True
-    )
-    img_b, st_b = pk.render_image_pallas(
-        scene, dcam, W, H, 4, key, opts_b, return_stats=True
-    )
-    np.testing.assert_array_equal(np.asarray(img_b), np.asarray(img_s))
-    assert float(st_b["segments"]) == float(st_s["segments"])
-
-
-def test_cluster_fused_done_bitwise_equals_unfused():
-    """cluster_fused_done: the fused walk completes a bounce in the
-    VISITING iteration (selection cpi vs the just-updated best) instead
-    of paying a full extra iteration to rediscover it — but it applies
-    the same stop rule to the same entry/best pair, so the visited
-    set/order, the image, and the exact segment totals must be BITWISE
-    identical to the unfused walk. Pinned both ways explicitly so the
-    guard survives whichever default production adopts. One packed and
-    one unpacked config (the two cursor codepaths); interpret-mode
-    parity across packed x cpi in {1,2} was verified at adoption time
-    (PERF.md round-5 fused-done entry)."""
-    import dataclasses
-
-    scene, cam, *_ = presets.get_config("cover", W, H)
-    dcam = derive_camera(cam)
-    key = jax.random.PRNGKey(7)
-    base = TraceOptions(max_depth=12, russian_roulette_depth=5,
-                        cluster_scan=True)
-    for packed in (True, False):
-        o0 = dataclasses.replace(base, cluster_packed_key=packed,
-                                 cluster_fused_done=False)
-        o1 = dataclasses.replace(o0, cluster_fused_done=True)
-        i0, s0 = pk.render_image_pallas(
-            scene, dcam, W, H, 4, key, o0, return_stats=True
-        )
-        i1, s1 = pk.render_image_pallas(
-            scene, dcam, W, H, 4, key, o1, return_stats=True
-        )
-        np.testing.assert_array_equal(np.asarray(i1), np.asarray(i0))
-        assert float(s1["segments"]) == float(s0["segments"])
-
-
-def test_cluster_pad_knobs_are_invariant():
-    """cluster_pad_k / cluster_pad_group (the per-phase cost-slope probe
-    knobs, scripts/probe_cluster_slopes.py) append UNHITTABLE bound rows
-    / member slots: a padded render must be bitwise- and segment-
-    identical to the unpadded one — the padding is pure measured cost.
-    Guards the probe's validity AND the group_total/group split in the
-    kernel (winner-slot arithmetic must stay on the real stride)."""
-    import dataclasses
-
-    scene, cam, *_ = presets.get_config("cover", W, H)
-    dcam = derive_camera(cam)
-    key = jax.random.PRNGKey(5)
-    opts = TraceOptions(max_depth=12, russian_roulette_depth=5,
-                        cluster_scan=True, cluster_cpi=1)
-    opts_p = dataclasses.replace(opts, cluster_pad_k=1,
-                                 cluster_pad_group=4,
-                                 cluster_pad_global=2,
-                                 cluster_pad_banks=1,
-                                 # residual-tail probes: RNG replay,
-                                 # accumulation round, camera-ray regen
-                                 pad_rng=1, pad_accum=1, pad_genray=1)
-    img, st = pk.render_image_pallas(
-        scene, dcam, W, H, 4, key, opts, return_stats=True
-    )
-    img_p, st_p = pk.render_image_pallas(
-        scene, dcam, W, H, 4, key, opts_p, return_stats=True
-    )
-    np.testing.assert_array_equal(np.asarray(img_p), np.asarray(img))
-    assert float(st_p["segments"]) == float(st["segments"])
-
-
-def test_cluster_kd_partition_bitwise_equals_flat():
-    """cluster_partition='kd' (balanced median bisection,
-    scene/accel.py _kd_chunks): bounds stay conservative, so the image
-    and segment totals are bitwise-identical to the flat scan — the
-    partition only changes broad-phase visit ORDER. The kd split packs
-    the cover's small spheres into ceil(n/group) FULL leaves (the grid
-    partition leaves K=36 cells 9-16/16 full), shaving a bound-table
-    vreg row from the kernel's dominant per-iteration phase."""
-    import dataclasses
-
-    scene, cam, *_ = presets.get_config("cover", W, H)
-    dcam = derive_camera(cam)
-    key = jax.random.PRNGKey(5)
-    opts = TraceOptions(max_depth=12, russian_roulette_depth=5,
-                        cluster_scan=False)
-    opts_kd = dataclasses.replace(
-        opts, cluster_scan=True, cluster_partition="kd"
-    )
-    # host-side: balanced leaves, every member inside its box
-    part = pk._cluster_partition(scene, opts_kd)
-    k = part.bounds.shape[0]
-    g = part.group
-    occ = (np.asarray(part.uuid)[part.n_global:] >= 0).reshape(k, g)
-    n_small = int(occ.sum())
-    assert k == -(-n_small // g)  # minimal leaf count
-    assert occ.sum(axis=1).min() >= g - 1  # balanced (15-16 at g=16)
-
-    img_f, st_f = pk.render_image_pallas(
-        scene, dcam, W, H, 4, key, opts, return_stats=True
-    )
-    img_k, st_k = pk.render_image_pallas(
-        scene, dcam, W, H, 4, key, opts_kd, return_stats=True
-    )
-    np.testing.assert_array_equal(np.asarray(img_k), np.asarray(img_f))
-    assert float(st_k["segments"]) == float(st_f["segments"])
-
-
-def test_cluster_scan_adaptive_and_fallbacks(monkeypatch):
-    """Adaptive cluster renders match flat bitwise; traced scenes and
-    cluster-free scenes fall back to the flat scan cleanly."""
-    import dataclasses
-
-    scene, cam, *_ = presets.get_config("demo", W, H)
-    dcam = derive_camera(cam)
-    key = jax.random.PRNGKey(2)
-    opts = TraceOptions(
-        max_depth=8, russian_roulette_depth=5, sampler="stratified",
-        adaptive_tolerance=0.3,
-    )
-    opts_c = dataclasses.replace(opts, cluster_scan=True)
-    # force the multi-chunk schedule so the adaptive machinery engages
-    # (a single-chunk render strips the tolerance and runs fixed-spp)
-    monkeypatch.setattr(pk, "_pick_chunk_spp", lambda *a, **k: 4)
-    a, sa = pk.render_image_pallas(
-        scene, dcam, W, H, 16, key, opts, return_stats=True
-    )
-    b, sb = pk.render_image_pallas(
-        scene, dcam, W, H, 16, key, opts_c, return_stats=True
-    )
-    assert "mean_spp" in sa, "adaptive gate did not engage"
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    assert float(sa["mean_spp"]) == float(sb["mean_spp"])
-
-    # traced scene inside jit: partition gate returns None, flat path
-    # serves the render (no crash, same image as the eager cluster call)
-    o = dataclasses.replace(opts_c, adaptive_tolerance=0.0)
-    eager = np.asarray(pk.render_image_pallas(scene, dcam, 64, 32, 2,
-                                              key, o))
-    jitted = np.asarray(jax.jit(
-        lambda s: pk.render_image_pallas(s, dcam, 64, 32, 2, key, o)
-    )(scene))
-    np.testing.assert_array_equal(eager, jitted)
-
-
-def test_cluster_scan_debug_overlay():
-    """Debug overlay under cluster_scan: the winner's ORIGINAL sphere id
-    rides the uuid bank through the partition's reorder, so the
-    selection outline (uuid == selected) matches the flat kernel
-    bitwise — including a GLOBAL-slot winner (the ground sphere)."""
-    import dataclasses
-
-    from raytracer_tpu.render.options import DebugParams
-
-    scene, cam, *_ = presets.get_config("two_sphere", W, H)
-    dcam = derive_camera(cam)
-    key = jax.random.PRNGKey(3)
-    opts = TraceOptions(max_depth=4, enable_debug=True)
-    opts_c = dataclasses.replace(opts, cluster_scan=True)
-    for dbg in (
-        DebugParams(  # cursor on the small (clustered) sphere's surface
-            cursor_point=jnp.asarray([0.0, 0.0, -0.5], jnp.float32),
-            selected_object=jnp.asarray(0, jnp.int32),
-        ),
-        DebugParams(  # outline on the ground = GLOBAL slot, uuid 1
-            cursor_point=jnp.asarray([100.0, 100.0, 100.0], jnp.float32),
-            selected_object=jnp.asarray(1, jnp.int32),
-        ),
-    ):
-        a = np.asarray(pk.render_image_pallas(
-            scene, dcam, W, H, 8, key, opts, dbg
-        ))
-        b = np.asarray(pk.render_image_pallas(
-            scene, dcam, W, H, 8, key, opts_c, dbg
-        ))
-        np.testing.assert_array_equal(a, b)
-    # the outline actually fired (red-dominant band on the ground)
-    red = b[..., 0] - np.maximum(b[..., 1], b[..., 2])
-    assert (red > 0.2).sum() > 0

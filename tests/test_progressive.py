@@ -259,30 +259,3 @@ def test_progressive_strips_adaptive(key):
         np.testing.assert_array_equal(
             np.asarray(a.accum), np.asarray(b.accum), err_msg=sampler
         )
-
-
-def test_progressive_cluster_scan_matches_flat(key):
-    """cluster_scan + static hints (the CLI's fixed-scene accumulation
-    path): the partition is built once at factory time and each traced
-    frame is gathered into its slot layout — the session must be
-    BITWISE-identical to the flat-scan session, for both samplers (the
-    stratified path additionally exercises the traced sample_offset)."""
-    import dataclasses
-
-    scene, cam, *_ = presets.get_config("demo", W, H)
-    # stratified only (it additionally exercises the traced
-    # sample_offset); each sampler costs two full step compiles
-    o_f = TraceOptions(max_depth=4, backend="pallas",
-                       sampler="stratified")
-    o_c = dataclasses.replace(o_f, cluster_scan=True)
-    s_f = make_step_fn(W, H, spp=2, opts=o_f,
-                       static_scene=scene, static_camera=cam)
-    s_c = make_step_fn(W, H, spp=2, opts=o_c,
-                       static_scene=scene, static_camera=cam)
-    a, seg_a = run_frames(s_f, init_render_state(W, H, key), scene,
-                          cam, 2)
-    b, seg_b = run_frames(s_c, init_render_state(W, H, key), scene,
-                          cam, 2)
-    np.testing.assert_array_equal(np.asarray(a.accum),
-                                  np.asarray(b.accum))
-    assert float(seg_a) == float(seg_b)

@@ -23,7 +23,7 @@ def test_retry_recovers_after_transient_faults():
         calls.append(1)
         if len(calls) < 3:
             raise FakeJaxRuntimeError(
-                "UNAVAILABLE: TPU worker process crashed or restarted."
+                "UNAVAILABLE: device worker process crashed or restarted."
             )
         return 42
 
@@ -92,7 +92,7 @@ def test_engine_tick_recovers_from_device_fault(monkeypatch):
 
     def crash(*a, **k):
         raise FakeJaxRuntimeError(
-            "UNAVAILABLE: TPU worker process crashed or restarted."
+            "UNAVAILABLE: device worker process crashed or restarted."
         )
 
     monkeypatch.setattr(eng, "_step_fn", lambda spp: crash)

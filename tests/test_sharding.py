@@ -114,7 +114,7 @@ def test_graft_entry_dryrun():
 
 def test_sharded_pallas_matches_single_chip(setup, key):
     """The Pallas kernel under shard_map (rows x spp mesh) reproduces the
-    single-chip pallas render to f32 summation order."""
+    single-device pallas render to f32 summation order (the spp psum)."""
     from raytracer_tpu.parallel.sharding import render_image_sharded_pallas
     from raytracer_tpu.render import pallas_kernel as pk
 
@@ -123,9 +123,8 @@ def test_sharded_pallas_matches_single_chip(setup, key):
     img, stats = render_image_sharded_pallas(
         scene, cam, W, H, 4, key, make_mesh((4, 2)), opts, return_stats=True
     )
-    single = pk._render_pallas(
-        scene, derive_camera(cam), key, W, H, 4, opts, False, 8, True,
-        k_slots=1,
+    single = pk.render_image_pallas(
+        scene, derive_camera(cam), W, H, 4, key, opts
     )
     np.testing.assert_allclose(
         np.asarray(img), np.asarray(single), atol=1e-6
@@ -201,71 +200,17 @@ def test_sharded_pallas_split_scan_parity(key):
     opts = TraceOptions(max_depth=4)
     # preconditions: the analysis really is active with a near-only suffix
     split = pk._containable_split(scene, derive_camera(cam), opts)
-    assert split is not None and split[1] < pk._pad_spheres(scene.count)
+    assert split is not None and split[1] < scene.count
 
     img = render_image_sharded_pallas(
         scene, cam, W, H, 2, key, make_mesh((2,), ("rows",)), opts
     )
     single = pk.render_image_pallas(
-        scene, derive_camera(cam), W, H, 2, key, opts, k_slots=1
+        scene, derive_camera(cam), W, H, 2, key, opts
     )
     np.testing.assert_allclose(
         np.asarray(img), np.asarray(single), atol=1e-6
     )
-
-
-def test_sharded_pallas_sorted_bitwise_vs_unsorted(setup, key):
-    """The sorted sharded offline path (profile chunk + per-shard pixel
-    sorting + K-slots + fused chunk scan) is bitwise-identical to the
-    unsorted sharded render: same chunk schedule, same per-pixel
-    accumulation order (VERDICT r2 #3)."""
-    import dataclasses
-
-    from raytracer_tpu.parallel.sharding import render_image_sharded_pallas
-    from raytracer_tpu.render import pallas_kernel as pk
-
-    scene, cam = setup
-    opts = TraceOptions(max_depth=4)
-    mesh = make_mesh((2,), ("rows",))
-    orig = pk._pick_chunk_spp
-    try:
-        # force multi-chunk at test size; spp=9 yields a UNIFORM schedule
-        # ([1, 4, 4]) so the fused lax.scan branch runs
-        pk._pick_chunk_spp = lambda spp, *a, **k: min(spp, 2)
-        a = render_image_sharded_pallas(
-            scene, cam, W, H, 9, key, mesh, opts
-        )
-        b = render_image_sharded_pallas(
-            scene, cam, W, H, 9, key, mesh,
-            dataclasses.replace(opts, sort_pixels=False),
-        )
-    finally:
-        pk._pick_chunk_spp = orig
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_sharded_pallas_sorted_matches_single_chip(setup, key):
-    """Sorted sharded render vs the sorted single-chip render: per-pixel
-    accumulation order depends only on the (identical) chunk schedule,
-    never on lane placement, so a pure-rows mesh reproduces the
-    single-chip image bitwise."""
-    from raytracer_tpu.parallel.sharding import render_image_sharded_pallas
-    from raytracer_tpu.render import pallas_kernel as pk
-
-    scene, cam = setup
-    opts = TraceOptions(max_depth=4)
-    orig = pk._pick_chunk_spp
-    try:
-        pk._pick_chunk_spp = lambda spp, *a, **k: min(spp, 2)
-        img = render_image_sharded_pallas(
-            scene, cam, W, H, 9, key, make_mesh((2,), ("rows",)), opts
-        )
-        single = pk.render_image_pallas(
-            scene, derive_camera(cam), W, H, 9, key, opts
-        )
-    finally:
-        pk._pick_chunk_spp = orig
-    np.testing.assert_array_equal(np.asarray(img), np.asarray(single))
 
 
 def test_sharded_progressive_static_scene_split(key):
@@ -285,7 +230,7 @@ def test_sharded_progressive_static_scene_split(key):
     cam = presets.simple_camera(W, H)
     opts = TraceOptions(max_depth=3, backend="pallas")
     split = pk._containable_split(scene, derive_camera(cam), opts)
-    assert split is not None and split[1] < pk._pad_spheres(scene.count)
+    assert split is not None and split[1] < scene.count
 
     mesh = make_mesh((2,), ("rows",))
     step_h = make_sharded_step_fn(
@@ -353,156 +298,22 @@ def test_sharded_stratified_progressive_matches_single_chip(setup, key):
     assert np.isfinite(f1).all() and (f1 >= 0).all() and (f1 <= 1).all()
 
 
-def test_sharded_pallas_cluster_scan_matches_flat(key):
-    """cluster_scan under shard_map: the host partition is built once
-    outside the mesh and its tables ride replicated into every shard —
-    the sharded cluster render must equal the sharded flat render
-    BITWISE (same argument as single-chip: mirrored exact arithmetic,
-    conservative walk), with equal segment counts."""
-    import dataclasses
-
-    from raytracer_tpu.parallel.sharding import render_image_sharded_pallas
-
-    scene, cam, *_ = presets.get_config("demo", W, H)
-    opts = TraceOptions(max_depth=4)
-    opts_c = dataclasses.replace(opts, cluster_scan=True)
-    mesh = make_mesh((4, 2))
-    a, sa = render_image_sharded_pallas(
-        scene, cam, W, H, 4, key, mesh, opts, return_stats=True
-    )
-    b, sb = render_image_sharded_pallas(
-        scene, cam, W, H, 4, key, mesh, opts_c, return_stats=True
-    )
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    assert float(sa["segments"]) == float(sb["segments"])
-
-
-def test_sharded_cluster_chunk_schedule_matches_flat(key, monkeypatch):
-    """The sharded cluster path must budget spp chunks with the ORIGINAL
-    scene count, not the padded partition layout's — the shard-local
-    chunk schedule sets the per-pixel f32 accumulation order, so a
-    padded count would silently cost bitwise parity between sharded
-    cluster and sharded flat renders at multi-chunk spp (the exact bug
-    the single-chip path fixed in round 4; ADVICE r4 flagged the
-    sharded call sites). Spy on the picker like the single-chip test."""
-    import dataclasses
-
+@pytest.mark.parametrize("config", ["demo", "cover"])
+def test_sharded_rows_bitwise_single_device(config, key):
+    """Every pixel is computed from absolute coordinates, so a rows-only
+    mesh reproduces the single-device Pallas render bitwise, segments
+    included (chip_smoke --multi checks the same on four cards)."""
     from raytracer_tpu.parallel.sharding import render_image_sharded_pallas
     from raytracer_tpu.render import pallas_kernel as pk
 
-    scene, cam, *_ = presets.get_config("cover", W, H)
-    opts_c = dataclasses.replace(
-        TraceOptions(max_depth=3), cluster_scan=True
+    scene, cam, *_ = presets.get_config(config, W, H)
+    opts = TraceOptions(max_depth=6, russian_roulette_depth=3)
+    img, st = render_image_sharded_pallas(
+        scene, cam, W, H, 2, key, make_mesh((4,), ("rows",)), opts,
+        return_stats=True,
     )
-    part = pk._cluster_partition(scene, opts_c)
-    assert part is not None
-    assert part.scene.count > scene.count  # padding present: test bites
-
-    seen = []
-    real = pk._pick_chunk_spp
-
-    def spy(spp, p, s_count, *a, **k):
-        seen.append(s_count)
-        return real(spp, p, s_count, *a, **k)
-
-    monkeypatch.setattr(pk, "_pick_chunk_spp", spy)
-    mesh = make_mesh((2,), ("rows",))
-    render_image_sharded_pallas(scene, cam, W, H, 4, key, mesh, opts_c)
-    assert seen and set(seen) == {scene.count}
-
-
-def test_sharded_interleaved_sorted_bitwise(key):
-    """Round-robin block interleaving (interleave_rows) re-assigns WHICH
-    shard renders which tile-row blocks; every per-pixel quantity derives
-    from absolute pixel coordinates and the shard-local chunk schedule
-    (same local_h ⇒ same schedule), so the un-interleaved image must be
-    bitwise-identical to the contiguous-band sharded render."""
-    import dataclasses
-
-    from raytracer_tpu.parallel.sharding import (
-        _shard_tile_params,
-        render_image_sharded_pallas,
+    single, st1 = pk.render_image_pallas(
+        scene, derive_camera(cam), W, H, 2, key, opts, return_stats=True
     )
-    from raytracer_tpu.render import pallas_kernel as pk
-
-    h = 128  # rows=2 -> local_h=64 -> g=32: 2 blocks/shard, a real perm
-    scene, cam, *_ = presets.get_config("two_sphere", W, h)
-    r_sub, k_slots = _shard_tile_params(h // 2)
-    assert h // 2 > r_sub * k_slots, "test needs >1 block per shard"
-    opts = TraceOptions(max_depth=3)
-    mesh = make_mesh((2,), ("rows",))
-    orig = pk._pick_chunk_spp
-    try:
-        pk._pick_chunk_spp = lambda spp, *a, **k: min(spp, 2)
-        a, sa = render_image_sharded_pallas(
-            scene, cam, W, h, 9, key, mesh, opts, return_stats=True
-        )
-        b, sb = render_image_sharded_pallas(
-            scene, cam, W, h, 9, key, mesh,
-            dataclasses.replace(opts, interleave_rows=True),
-            return_stats=True,
-        )
-    finally:
-        pk._pick_chunk_spp = orig
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    assert float(sa["segments"]) == float(sb["segments"])
-
-
-def test_sharded_interleaved_adaptive_bitwise(key):
-    """Adaptive + interleave: per-pixel stop decisions depend only on the
-    pixel's own statistics and the (identical) chunk schedule, so image,
-    sample-density map, and total segments match the contiguous layout
-    exactly. This is the layout the flag exists for — adaptive surviving
-    pixels concentrate spatially, and interleaving hands every shard a
-    cross-section instead of a solid stripe."""
-    import dataclasses
-
-    from raytracer_tpu.parallel.sharding import render_image_sharded_pallas
-    from raytracer_tpu.render import pallas_kernel as pk
-
-    h = 128
-    scene, cam, *_ = presets.get_config("two_sphere", W, h)
-    opts = TraceOptions(max_depth=3, adaptive_tolerance=0.05)
-    mesh = make_mesh((2,), ("rows",))
-    orig_chunk, orig_minn = pk._pick_chunk_spp, pk.ADAPTIVE_MIN_N
-    try:
-        pk._pick_chunk_spp = lambda spp, *a, **k: min(spp, 3)
-        pk.ADAPTIVE_MIN_N = 4
-        a, sa = render_image_sharded_pallas(
-            scene, cam, W, h, 27, key, mesh, opts, return_stats=True
-        )
-        b, sb = render_image_sharded_pallas(
-            scene, cam, W, h, 27, key, mesh,
-            dataclasses.replace(opts, interleave_rows=True),
-            return_stats=True,
-        )
-    finally:
-        pk._pick_chunk_spp, pk.ADAPTIVE_MIN_N = orig_chunk, orig_minn
-    assert float(sa["mean_spp"]) < 27.0  # early stopping engaged
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    np.testing.assert_array_equal(
-        np.asarray(sa["spp_map"]), np.asarray(sb["spp_map"])
-    )
-    assert float(sa["segments"]) == float(sb["segments"])
-    assert float(sa["mean_spp"]) == pytest.approx(
-        float(sb["mean_spp"]), rel=1e-6
-    )
-
-
-def test_interleave_noop_paths(setup, key):
-    """interleave_rows must be inert where it cannot apply: the unsorted
-    single-chunk path and one-block-per-shard bands render identically
-    with the flag on (the gate skips the stride and the permute)."""
-    import dataclasses
-
-    from raytracer_tpu.parallel.sharding import render_image_sharded_pallas
-
-    scene, cam = setup
-    mesh = make_mesh((4,), ("rows",))  # local_h=8: one 8-row block
-    opts = TraceOptions(max_depth=3)
-    a = render_image_sharded_pallas(scene, cam, W, H, 2, key, mesh, opts)
-    b = render_image_sharded_pallas(
-        scene, cam, W, H, 2, key, mesh,
-        dataclasses.replace(opts, interleave_rows=True),
-    )
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    np.testing.assert_array_equal(np.asarray(img), np.asarray(single))
+    assert float(st["segments"]) == float(st1["segments"])
